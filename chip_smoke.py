@@ -11,11 +11,13 @@ Phases, one line each; any failure exits non-zero and prints no ``ok`` line:
    list of ported kernels;
 3. kernel vs plain version on the card: the six small configurations of
    ``tests/test_forces_pallas.py`` (random scenes from a numpy seed) and
-   DamBreak3D at dp 0.012 after two chunks, on every active particle;
+   DamBreak3D at dp 0.012 after two chunks, on every active particle; two
+   launches on the same DamBreak3D inputs must be bit-identical;
 4. main path at full size: ``Simulator.run`` on DamBreak3D at dp 0.012 for
    5 chunks (50 iterations); the forces kernel must have launched exactly
-   twice per step; particle-steps/s, kernel and plain-version ms and the
-   kernel's bound;
+   twice per step; particle-steps/s, kernel and plain-version ms, the
+   kernel's bound and the compaction figure of its thread mapping
+   (``pair_stats``);
 5. golden fingerprint: DamBreak3D at dp 0.04 (max_ppc 64), 100 iterations,
    against ``tests/references/DamBreak3D_100.npz``.
 
@@ -140,36 +142,76 @@ def small_configs():
     }
 
 
-def count_pairs(fw, P, plan, capacity, chunk=256):
-    """(candidate, in-range) pairs of one forces pass over ``plan``: real
-    centrals x slots of the groups the plan kept, and those of them with
-    0 < r^2 < rad^2, the pairs whose physics the kernel evaluates.  No
-    minimum image: DamBreak3D has no periodic axis."""
+# the forces kernel's thread mapping (csrc/forces.cu): a warp holds 8
+# consecutive centrals of a block, each with 4 slot lanes; lane l owns the
+# slots l + 4j, j = 0..31, of a tile
+LANES = 4
+WARP = 32
+CPW = WARP // LANES  # centrals per warp
+
+
+def pair_stats(P, plan, capacity, rad2, chunk=256):
+    """The work of one forces pass of property table ``P`` over ``plan``,
+    counted from the data:
+
+    * candidates: real centrals x slots of the groups the plan kept;
+    * in_range: those with 0 < r^2 < rad^2, whose physics the kernel
+      evaluates (no minimum image: DamBreak3D has no periodic axis);
+    * warp_tiles: (warp, tile) pairs of warps that hold a real central (the
+      kernel skips the others);
+    * body_compacted: the pair-body iterations of those warps, max-popcount
+      per tile, the largest number of in-range slots among a warp's 32
+      threads;
+    * body_slotwise: what a warp stepping through its slot indices j
+      together would issue instead, one for each j where any of its threads
+      is in range."""
     import torch
 
     from gpusph_tpu_torch.ops.block_plan import B, GPT, GROUP, TS
 
     nb = plan.n_blocks
+    dev = P.device
     n_groups = P.shape[0] // GROUP - 1  # group n_groups is the pad sentinel
     pos = P[:, :3]
-    rad2 = torch.tensor(fw.sp.influenceradius ** 2, dtype=torch.float32, device=P.device)
+    rad2_t = torch.tensor(rad2, dtype=torch.float32, device=dev)
     t_used = int(plan.tile_off[-1])
     tb = plan.tile_block[:t_used].long()
     cen = plan.cen_idx[: nb * B].long().reshape(nb, B)
     fg = plan.flat_groups[: t_used * GPT].long().reshape(t_used, GPT)
-    real_centrals = (cen < capacity).sum(dim=1)
+    real = cen < capacity
     kept_slots = (fg < n_groups).sum(dim=1) * GROUP
-    candidates = int((real_centrals[tb] * kept_slots).sum())
-    lane = torch.arange(GROUP, device=P.device)
-    in_range = 0
+    candidates = int((real.sum(dim=1)[tb] * kept_slots).sum())
+    live = real.reshape(nb, B // CPW, CPW).any(dim=2)  # [nb, warps]
+    warp_tiles = int(live[tb].sum())
+    lane = torch.arange(GROUP, device=dev)
+    in_range = body_compacted = body_slotwise = 0
     for s in range(0, t_used, chunk):
         e = min(s + chunk, t_used)
         c = pos[cen[tb[s:e]]]  # [tiles, B, 3]
         w = pos[(fg[s:e, :, None] * GROUP + lane).reshape(e - s, TS)]  # [tiles, TS, 3]
         d = c[:, :, None, :] - w[:, None, :, :]
         r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-        in_range += int(((r2 > 0) & (r2 < rad2)).sum())
-    return candidates, in_range
+        hit = (r2 > 0) & (r2 < rad2_t)  # [tiles, B, TS]
+        in_range += int(hit.sum())
+        # centrals -> [warp, central]; slot lane + 4j -> [j, lane]
+        hit = hit.reshape(e - s, B // CPW, CPW, TS // LANES, LANES)
+        body_compacted += int(hit.sum(dim=3).amax(dim=(2, 3)).sum())
+        body_slotwise += int(hit.any(dim=4).any(dim=2).sum())
+    return dict(candidates=candidates, in_range=in_range, warp_tiles=warp_tiles,
+                body_compacted=body_compacted, body_slotwise=body_slotwise)
+
+
+def compaction(stats):
+    """The compaction figure of ``pair_stats``: the mean popcount of a
+    thread against the mean of its warp's max popcount, over (warp, tile);
+    their ratio is the share of the body iterations a warp issues that do
+    useful work on a lane."""
+    n = max(stats["warp_tiles"], 1)
+    mean_pop = stats["in_range"] / (WARP * n)
+    mean_max = stats["body_compacted"] / n
+    return dict(mean_popcount=mean_pop, mean_max_popcount=mean_max,
+                useful_share=mean_pop / mean_max if mean_max else 0.0,
+                slotwise_per_warp_tile=stats["body_slotwise"] / n)
 
 
 def compare_kernel(fw, grid, state):
@@ -278,6 +320,15 @@ def main() -> int:
         f"{int(st2.count_active())} active: {'ok' if ok else 'MISMATCH'} {json.dumps(rep)}")
     if not ok:
         fail("kernel disagrees with the plain version on DamBreak3D dp 0.012")
+    sts, aux = build_cells(grid, st2)
+    plan = build_block_plan(sim.fw, grid, sts, aux)
+    P = forces_kernel.prop_table(sim.fw, sts)
+    first = forces_kernel.pair_forces(sim.fw, grid, P, plan)
+    same = torch.equal(first, forces_kernel.pair_forces(sim.fw, grid, P, plan))
+    say(f"[3 determinism] DamBreak3D dp 0.012: two launches on the same inputs are "
+        f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        fail("two launches of the forces kernel on the same inputs differ")
 
     # --- 4. main path at full size --------------------------------------------
     prob = Dam({"deltap": 0.012})
@@ -317,7 +368,8 @@ def main() -> int:
                        warmup=1)
     t_used = int(plan.tile_off[-1])
     kept_groups = int((plan.flat_groups[: t_used * 8] < P.shape[0] // GROUP - 1).sum())
-    candidates, in_range = count_pairs(fw, P, plan, sts.capacity)
+    work = pair_stats(P, plan, sts.capacity, fw.sp.influenceradius ** 2)
+    candidates, in_range = work["candidates"], work["in_range"]
     flops = candidates * CANDIDATE_FLOPS + in_range * IN_RANGE_FLOPS_DAMBREAK3D
     N = sts.capacity
     nbytes = (N + 1) * 64 + N * 32
@@ -364,6 +416,13 @@ def main() -> int:
         f"{t_ops:.6g} ms at 67 TFLOP/s; "
         f"{nbytes} B = {t_bytes:.6g} ms at 3.35 TB/s; bound {bound_ms:.6g} ms ({bound_by}); "
         f"roofline share {bound_ms / kernel_ms:.4f} [{card}]")
+    comp = compaction(work)
+    say(f"[4 compaction] {work['warp_tiles']} (warp, tile) pairs of live warps: mean "
+        f"popcount {comp['mean_popcount']:.6g}, mean max popcount "
+        f"{comp['mean_max_popcount']:.6g}, useful share of the body iterations "
+        f"{comp['useful_share']:.4f}; body iterations {work['body_compacted']} compacted "
+        f"against {work['body_slotwise']} slot by slot "
+        f"({comp['slotwise_per_warp_tile']:.6g} per (warp, tile))")
 
     # --- 5. golden fingerprint --------------------------------------------------
     prob = Dam({"deltap": 0.04, "max_ppc": 64})

@@ -97,7 +97,7 @@ def load_library() -> ctypes.CDLL:
 
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gpusph_forces_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, vp]
+    lib.gpusph_forces_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
     lib.gpusph_forces_launch.restype = ci
     lib.gpusph_forces_abi.argtypes = [ctypes.POINTER(ci), ctypes.POINTER(ci)]
     lib.gpusph_forces_abi.restype = ci

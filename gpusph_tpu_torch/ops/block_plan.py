@@ -63,6 +63,12 @@ class BlockPlan:
         return self.tile_off.shape[0] - 1
 
 
+def group_count(capacity: int) -> int:
+    """Neighbor groups of GROUP slots that hold ``capacity`` particles; the
+    group of that id is the pad sentinel of the property table."""
+    return -(-capacity // GROUP) if capacity else 1
+
+
 def plan_dims(fw: SimFramework, grid: CellGrid, capacity: int):
     """Static plan dimensions for a framework + grid + capacity."""
     sp = fw.sp
@@ -76,7 +82,7 @@ def plan_dims(fw: SimFramework, grid: CellGrid, capacity: int):
     ext = sp.max_run_extent if sp.max_run_extent else (SPAN + 2) * K
     GR = ext // GROUP + 2  # candidate groups per run (GROUP-alignment slack)
     M = 9 * GR  # candidate-group list width per block
-    nG = -(-capacity // GROUP) if capacity else 1  # groups in the slot array
+    nG = group_count(capacity)  # groups in the slot array
     # per-block neighbor-list capacity in groups (probed sp.max_block_groups)
     G_max = min(_round_up(sp.max_block_groups or M, GPT), _round_up(M, GPT))
     if capacity:  # can never keep more groups than the whole array holds
@@ -447,6 +453,7 @@ def build_block_plan(fw: SimFramework, grid: CellGrid, state: ParticleState,
 __all__ = [
     "BlockPlan",
     "build_block_plan",
+    "group_count",
     "plan_dims",
     "probe_plan_numpy",
     "B",

@@ -41,7 +41,7 @@ from ..defs import (
 from ..framework import SimFramework
 from ..state import ParticleState, fluid_num, is_active, part_type
 from . import eos
-from .block_plan import B, GPT, GROUP, PAD_POS, TS, BlockPlan
+from .block_plan import B, GPT, GROUP, PAD_POS, TS, BlockPlan, group_count
 from .forces import ForcesOut, _avg, _powf
 from .kernels import F as kernF
 from .kernels import W as kernW
@@ -107,8 +107,7 @@ def prop_table(fw: SimFramework, state: ParticleState) -> torch.Tensor:
     rho_phys = eos.physical_density(pp, state.rho, f_num)
     press = eos.pressure(pp, state.rho, f_num)
     sspeed = eos.sound_speed(pp, state.rho, f_num)
-    nG = -(-N // GROUP) if N else 1
-    rows = (nG + 1) * GROUP
+    rows = (group_count(N) + 1) * GROUP
 
     # filled column by column, in place, in a fresh tensor
     P = torch.zeros((rows, NCOLS), dtype=torch.float32, device=dev)
@@ -421,6 +420,13 @@ def _launch(fw: SimFramework, grid: CellGrid, P: torch.Tensor,
         raise ValueError("plan.cen_idx does not match plan.tile_off")
     if plan.flat_groups.shape[0] % GPT:
         raise ValueError("plan.flat_groups is not a whole number of tiles")
+    # the kernel skips group n_groups (the pad) and centrals at row
+    # `capacity` (the sentinel, a pad row of the table)
+    capacity = plan.slot_of_sorted.shape[0]
+    n_groups = P.shape[0] // GROUP - 1
+    if n_groups != group_count(capacity):
+        raise ValueError(f"property table of {P.shape[0]} rows does not match the "
+                         f"plan's capacity {capacity}")
 
     lib = _build.load_library()
     iarr, farr = _ctypes_params(fw, grid)
@@ -430,7 +436,8 @@ def _launch(fw: SimFramework, grid: CellGrid, P: torch.Tensor,
         code = lib.gpusph_forces_launch(
             ctypes.addressof(iarr), ctypes.addressof(farr), P.data_ptr(),
             plan.flat_groups.data_ptr(), plan.tile_off.data_ptr(),
-            plan.cen_idx.data_ptr(), out.data_ptr(), nb, stream)
+            plan.cen_idx.data_ptr(), out.data_ptr(), nb,
+            n_groups, capacity, stream)
     _build.check(lib, code, "forces kernel launch")
     launches += 1
     return out

@@ -17,9 +17,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "gpusph_tpu")
 
 
 def _port_sources():
+    """The port, chip_smoke.py, the port's chip scripts and the tests that
+    run where JAX is not installed (on the card's machine)."""
     files = sorted((ROOT / "gpusph_tpu_torch").rglob("*.py"))
     assert len(files) >= 15
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "sweep_forces_cuda.py",
+                    ROOT / "scripts" / "ab_chip_smoke.py",
+                    ROOT / "tests" / "test_torch_forces_gpu.py",
+                    ROOT / "tests" / "test_torch_plan_invariants.py"]
 
 
 def _imported_modules(path):
