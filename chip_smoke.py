@@ -19,7 +19,13 @@ Phases, one line each; any failure exits non-zero and prints no ``ok`` line:
    kernel's bound and the compaction figure of its thread mapping
    (``pair_stats``);
 5. golden fingerprint: DamBreak3D at dp 0.04 (max_ppc 64), 100 iterations,
-   against ``tests/references/DamBreak3D_100.npz``.
+   against ``tests/references/DamBreak3D_100.npz``;
+6. output path at dp 0.012, in a temporary directory: the CLI with
+   checkpoints (layout, the last VTU frame against the final checkpoint,
+   test points, energy and body series), a resume from a middle hotfile
+   against the straight run, the write-time post-process pass on the card
+   against the CPU, ``--repack-only``, and the cost of a write and of a
+   repack chunk.
 
 Then one JSON line describing each kernel, and last the ``ok`` line.
 """
@@ -259,6 +265,194 @@ def compare_kernel(fw, grid, state):
     return ok, float((got.DvDt[act] - dv_ref).abs().max()), rep
 
 
+# phase 6 tolerances: the resume runs the same deterministic kernels from a
+# bit-exact checkpoint, but the body-force reduction sums with index_add_
+# (atomics on the card), so the state is held within RESUME_POS_TOL metres
+# rather than bit for bit; the post-process pass on the card and on the CPU
+# sums its pairs in another order
+RESUME_POS_TOL = 1e-6
+POST_RTOL = 1e-5
+POST_ATOL_FRAC = 1e-6
+OUTPUT_DP = 0.012
+OUTPUT_ITERS = 50
+REPACK_MAXITER = 10
+
+
+def run_cli(argv):
+    """``gpusph_tpu_torch.cli.main`` in-process; returns its standard output
+    (also echoed, indented)."""
+    import contextlib
+    import io
+
+    from gpusph_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    for ln in out.splitlines():
+        say(f"  | {ln}")
+    if rc != 0:
+        fail(f"cli {' '.join(argv)} exited {rc}")
+    return out
+
+
+def output_phase(dev, card):
+    """Phase 6: DamBreak3D's output path on the card (see the docstring)."""
+    import glob
+    import re
+    import tempfile
+
+    import torch
+
+    from gpusph_tpu_torch.convert import state_to_numpy
+    from gpusph_tpu_torch.io.hotfile import load_hotfile
+    from gpusph_tpu_torch.ops import forces_kernel
+    from gpusph_tpu_torch.io.vtk import read_vtu
+    from gpusph_tpu_torch.ops.eos import physical_density, pressure
+    from gpusph_tpu_torch.ops.postprocess import make_write_postprocess
+    from gpusph_tpu_torch.problems.base import get_problem
+    from gpusph_tpu_torch.repacking import make_repack_chunk
+    from gpusph_tpu_torch.state import fluid_num
+
+    prob = get_problem("DamBreak3D")({"deltap": OUTPUT_DP})
+    grid, state0 = prob.build()
+    fw = prob.fw.finalize()
+    base = ["DamBreak3D", "--deltap", str(OUTPUT_DP), "--maxiter", str(OUTPUT_ITERS),
+            "--checkpoint-every", "0.005"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_out_") as tmp:
+        straight = os.path.join(tmp, "straight")
+        forces_kernel.launches = 0
+        t0 = time.perf_counter()
+        out = run_cli(base + ["--dir", straight])
+        wall = time.perf_counter() - t0
+        launches = forces_kernel.launches
+        if launches != 2 * OUTPUT_ITERS:
+            fail(f"forces kernel launched {launches} times in the CLI's {OUTPUT_ITERS} "
+                 f"iterations, expected {2 * OUTPUT_ITERS}")
+        m = re.search(r"Writes: (\d+) .*post-process ([\d.e+-]+), host copy ([\d.e+-]+), "
+                      r"files ([\d.e+-]+)", out)
+        if m is None:
+            fail("the CLI printed no write-cost line")
+        n_writes, post_ms, copy_ms, files_ms = int(m[1]), *map(float, m.groups()[1:])
+        layout = ["summary.txt", "energy.txt", "testpoints.txt", "rbdata.txt",
+                  "objectforces.txt", "data/PART.pvd"]
+        missing = [f for f in layout if not os.path.isfile(os.path.join(straight, f))]
+        frames = sorted(glob.glob(os.path.join(straight, "data", "PART_*.vtu")))
+        hots = sorted(glob.glob(os.path.join(straight, "hot_*.npz")))
+        if missing or not frames or len(hots) < 2:
+            fail(f"output layout: missing {missing}, {len(frames)} frames, "
+                 f"{len(hots)} hotfiles")
+        say(f"[6 output] DamBreak3D dp {OUTPUT_DP}: CLI, {OUTPUT_ITERS} iterations in "
+            f"{wall:.3f} s (host clock, build included), forces kernel launches "
+            f"{launches}, {n_writes} writes: {', '.join(layout)}, "
+            f"{len(frames)} x data/PART_*.vtu, "
+            f"{', '.join(os.path.basename(h) for h in hots)} [{card}]")
+
+        # the last frame is the final state: the final write is forced
+        final, header, body = load_hotfile(hots[-1])
+        if header["iterations"] != OUTPUT_ITERS:
+            fail(f"last hotfile at iteration {header['iterations']}")
+        fin = state_to_numpy(final)
+        act = final.active.numpy()
+        frame = read_vtu(frames[-1])
+        rows = np.loadtxt(os.path.join(straight, "testpoints.txt"), ndmin=2)
+        times, counts = np.unique(rows[:, 0], return_counts=True)
+        # test-point rows of a frame carry the interpolated velocity, the
+        # values of the last write in testpoints.txt (%.9g: exact in f32)
+        tp = (fin["info"][act] & 7) == 3
+        vel = fin["vel"][act].copy()
+        vel[tp] = rows[rows[:, 0] == times[-1]][:, 5:8]
+        exact = {"pos": fin["pos"][act], "Mass": fin["mass"][act], "Id": fin["id"][act],
+                 "Info": fin["info"][act], "Velocity": vel}
+        bad = [k for k, v in exact.items()
+               if k not in frame or frame[k].dtype != v.dtype
+               or not np.array_equal(frame[k], v)]
+        f_num = fluid_num(final.info)
+        eos_err = max(
+            float(np.abs(frame[k][~tp] - ref.numpy()[act][~tp]).max()
+                  / np.abs(ref.numpy()[act]).max())
+            for k, ref in (("Pressure", pressure(fw.pp, final.rho, f_num)),
+                           ("Density", physical_density(fw.pp, final.rho, f_num))))
+        energy = np.loadtxt(os.path.join(straight, "energy.txt"), ndmin=2)
+        rb = np.loadtxt(os.path.join(straight, "rbdata.txt"), ndmin=2)
+        say(f"[6 output] last frame {os.path.basename(frames[-1])} against the final "
+            f"checkpoint ({int(act.sum())} rows): pos/Mass/Id/Info/Velocity "
+            f"{'exact' if not bad else 'DIFFER ' + str(bad)}, Pressure/Density max rel "
+            f"err {eos_err:.3g}; testpoints.txt {len(times)} writes x {set(counts.tolist())} "
+            f"rows, finite {bool(np.isfinite(rows).all())}; energy.txt {len(energy)} rows, "
+            f"rbdata.txt {len(rb)} rows, finite "
+            f"{bool(np.isfinite(energy).all() and np.isfinite(rb).all())}")
+        if bad or not eos_err <= 1e-6:
+            fail("the last VTU frame disagrees with the final state")
+        if set(counts.tolist()) != {3} or not np.isfinite(rows).all():
+            fail("testpoints.txt: not three finite rows per write")
+        if not (np.isfinite(energy).all() and np.isfinite(rb).all() and len(rb)):
+            fail("energy.txt / rbdata.txt not finite")
+
+        # resume from a middle checkpoint to the same iteration
+        middle = [h for h in hots[:-1] if load_hotfile(h)[1]["iterations"] < OUTPUT_ITERS]
+        if not middle:
+            fail("no middle hotfile to resume from")
+        resumed = os.path.join(tmp, "resumed")
+        run_cli(base + ["--dir", resumed, "--resume", middle[0]])
+        again, rheader, _ = load_hotfile(sorted(glob.glob(os.path.join(resumed,
+                                                                      "hot_*.npz")))[-1])
+        got = state_to_numpy(again)
+        drift = {k: float(np.abs(got[k] - fin[k]).max()) for k in ("pos", "vel", "rho")}
+        same_ids = np.array_equal(got["id"], fin["id"])
+        say(f"[6 resume] from {os.path.basename(middle[0])} (iteration "
+            f"{load_hotfile(middle[0])[1]['iterations']}) to {rheader['iterations']}: max "
+            f"drift from the straight run pos {drift['pos']:.6g} m (limit {RESUME_POS_TOL}), "
+            f"vel {drift['vel']:.6g}, rho {drift['rho']:.6g}; ids "
+            f"{'equal' if same_ids else 'DIFFER'}; t {rheader['t']!r} vs {header['t']!r}")
+        if not (same_ids and rheader["iterations"] == OUTPUT_ITERS
+                and drift["pos"] <= RESUME_POS_TOL):
+            fail("the resumed run drifted from the straight run")
+
+    # the write-time post-process pass: card against CPU on the final state
+    post_dev = make_write_postprocess(fw, grid)
+    on_card = post_dev(final.to(dev))
+    on_cpu = post_dev(final)
+    is_tp = (fin["info"] & 7) == 3
+    worst, errs = 0.0, {}
+    for k in ("TestpointVel", "TestpointPress"):
+        a, b = on_card[k].cpu().numpy()[is_tp], on_cpu[k].numpy()[is_tp]
+        atol = POST_ATOL_FRAC * float(np.abs(b).max())
+        errs[k] = float(np.abs(a - b).max())
+        worst = max(worst, float((np.abs(a - b) - (atol + POST_RTOL * np.abs(b))).max()))
+    st_dev = final.to(dev)
+    post_card_ms = cuda_ms(lambda: post_dev(st_dev), 5, warmup=1)
+    say(f"[6 post] TESTPOINTS pass on the final state, card vs CPU: max abs diff "
+        f"vel {errs['TestpointVel']:.6g}, press {errs['TestpointPress']:.6g} (rtol "
+        f"{POST_RTOL}, atol {POST_ATOL_FRAC} x max); {post_card_ms:.6g} ms on the card "
+        f"(CUDA events) [{card}]")
+    if not (worst <= 0.0 and all(np.isfinite(v) for v in errs.values())):
+        fail("the post-process pass on the card disagrees with the CPU")
+
+    # repacking: the CLI's --repack-only, depth cut to REPACK_MAXITER
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repack_") as tmp:
+        t0 = time.perf_counter()
+        run_cli(["DamBreak3D", "--deltap", str(OUTPUT_DP), "--repack-only",
+                 "--repack_maxiter", str(REPACK_MAXITER), "--dir", tmp])
+        repack_wall = time.perf_counter() - t0
+        rst, rhead, _ = load_hotfile(os.path.join(tmp, "repack.npz"))
+    rfinite = bool(torch.isfinite(rst.pos).all())
+    chunk = make_repack_chunk(fw, grid, 10)
+    st_dev = state0.to(dev)
+    repack_ms = cuda_ms(lambda: chunk(st_dev), 1, warmup=0)  # warmed up by the CLI
+    moved = float((rst.pos - state0.pos[rst.id.long()]).abs().max())  # ids: built rows
+    say(f"[6 repack] --repack-only, repack_maxiter {REPACK_MAXITER}: {repack_wall:.3f} s "
+        f"(host clock, CLI in-process, build included); repack.npz finite {rfinite}, max "
+        f"displacement {moved:.6g} m; {repack_ms:.6g} ms per repack chunk of 10 steps "
+        f"(CUDA events) [{card}]")
+    if not (rfinite and rhead["iterations"] == 0 and moved > 0):
+        fail("repacking wrote no usable state")
+    say(f"[6 cost] ms per write: post-process {post_ms:.6g}, host copy {copy_ms:.6g}, "
+        f"file write {files_ms:.6g} (host clock, {n_writes} writes); "
+        f"{repack_ms:.6g} ms per repack chunk [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -445,6 +639,9 @@ def main() -> int:
         f"dt_ref {float(ref['dt']):.6g} dt_now {sim.dt:.6g} [{card}]")
     if not drift["pos"] <= 1e-3 * pos_scale:
         fail("golden: pos drift above 1e-3 x max|pos|")
+
+    # --- 6. output path --------------------------------------------------------
+    output_phase(dev, card)
 
     say(json.dumps({"kernels": [{
         "name": "forces",

@@ -264,9 +264,31 @@ def apply_body_motion(
     )
 
 
+def bodies_to_dict(bodies) -> dict:
+    """JSON-serializable body state for HotFile checkpoints (the reference
+    persists moving-body state in the HotFile, `src/writers/HotFile.h:45-75`).
+    ``bodies`` is a BodiesState on any device, or its host copy as a mapping
+    of numpy arrays (``convert.bodies_to_numpy``)."""
+    if bodies is None:
+        return {}
+    if isinstance(bodies, BodiesState):
+        bodies = {k: getattr(bodies, k).detach().cpu().numpy() for k in BODY_FIELDS}
+    return {k: np.asarray(bodies[k]).tolist() for k in BODY_FIELDS}
+
+
+def bodies_from_dict(d: dict) -> Optional[BodiesState]:
+    """Inverse of :func:`bodies_to_dict`, on the CPU; None for an empty
+    dict."""
+    if not d:
+        return None
+    return BodiesState(**{k: torch.tensor(d[k], dtype=torch.float32) for k in BODY_FIELDS})
+
+
 __all__ = [
     "BodySpec",
     "BodiesState",
+    "bodies_to_dict",
+    "bodies_from_dict",
     "BODY_FIELDS",
     "init_bodies_state",
     "reduce_body_forces",

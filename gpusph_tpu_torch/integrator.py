@@ -168,6 +168,7 @@ class Simulator:
         self.particle_steps = 0
         self.elapsed = 0.0
         self.bodies: Optional[BodiesState] = None  # created by run()
+        self.finished = False  # set for the last on_write call of run()
 
     def initial_dt(self) -> float:
         """Initial dt: 0.1 h/c0 like the reference default when dt not set."""
@@ -188,8 +189,10 @@ class Simulator:
     ) -> ParticleState:
         """Run until tend/maxiter, calling ``on_write(sim, state)`` at the
         start, at the write cadence (the doWrite path, `src/GPUSPH.cc:1573`)
-        and at the end.  The state is moved to the simulator's device
-        first."""
+        and once at the end, with ``sim.finished`` set for that last call.
+        The state is moved to the simulator's device first.  A resumed
+        Simulator (``t``, ``dt``, ``iterations`` and ``bodies`` set from a
+        hotfile) continues from them."""
         sp = self.fw.sp
         tend = sp.tend if tend is None else tend
         maxiter = sp.maxiter if maxiter is None else maxiter
@@ -204,6 +207,7 @@ class Simulator:
         else:
             self.bodies = self.bodies.to(self.device)
 
+        self.finished = False
         if on_write is not None:
             on_write(self, state)
         while True:
@@ -216,13 +220,12 @@ class Simulator:
             self.t = float(t)
             self.dt = float(stats.dt)
             self.particle_steps += int(stats.n_active) * sp.buildneibsfreq
+            if (tend and self.t >= tend) or (maxiter and self.iterations >= maxiter):
+                break
             if self.t >= next_write and on_write is not None:
                 on_write(self, state)
                 next_write += write_every
-            if tend and self.t >= tend:
-                break
-            if maxiter and self.iterations >= maxiter:
-                break
+        self.finished = True
         if on_write is not None:
             on_write(self, state)
         return state

@@ -95,6 +95,40 @@ def linearize(grid: CellGrid, ijk: torch.Tensor) -> torch.Tensor:
     return (ijk[..., a2] * n1 + ijk[..., a1]) * n0 + ijk[..., a0]
 
 
+def delinearize(grid: CellGrid, cells: torch.Tensor):
+    """Inverse of :func:`linearize`: linear id -> [i, j, k] per world axis."""
+    a0, a1, a2 = grid.order
+    n0, n1 = grid.ncells[a0], grid.ncells[a1]
+    coords = [None, None, None]
+    coords[a0] = cells % n0
+    coords[a1] = (cells // n0) % n1
+    coords[a2] = cells // (n0 * n1)
+    return coords
+
+
+# the 27 neighbor-cell offsets, x fastest (the order of the JAX package)
+_OFFSETS = [(dx, dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+
+
+def neighbor_cell_ids(grid: CellGrid, cells: torch.Tensor) -> torch.Tensor:
+    """The 27 neighboring linear cell ids [C,27] of linear ids ``cells`` [C]:
+    periodic axes wrap, cells outside a closed axis become the trash cell."""
+    coords = delinearize(grid, cells)
+    offs = torch.tensor(_OFFSETS, dtype=cells.dtype, device=cells.device)
+    valid = torch.ones((cells.shape[0], 27), dtype=torch.bool, device=cells.device)
+    wrapped = []
+    for axis in range(3):
+        n = grid.ncells[axis]
+        coord = coords[axis][:, None] + offs[None, :, axis]
+        if grid.periodic & (1 << axis):
+            wrapped.append(coord % n)
+        else:
+            valid = valid & (coord >= 0) & (coord < n)
+            wrapped.append(coord.clamp(0, n - 1))
+    lin = linearize(grid, torch.stack(wrapped, dim=-1))
+    return torch.where(valid, lin, grid.trash_cell)
+
+
 def cell_hash(grid: CellGrid, pos: torch.Tensor, active: torch.Tensor):
     """Linear cell id per particle (i32); inactive slots go to the trash
     cell so they sort to the end and never appear in any neighbor bin."""
@@ -147,6 +181,8 @@ __all__ = [
     "make_grid",
     "cell_coords",
     "cell_hash",
+    "delinearize",
+    "neighbor_cell_ids",
     "linearize",
     "build_cells",
 ]

@@ -9,9 +9,10 @@ pair — the reference's ``fill_parts`` + ``copy_to_array``
 (`src/GPUSPH.cc:252,397`).  The state is built on the CPU; the Simulator
 moves it to its device.
 
-Not ported yet: the other geometry kinds (spheres, cylinders, STL, HDF5,
-SA meshes), planes, open boundaries and the writers, which ``add_writer``
-records for a later slice.
+``add_writer`` and ``add_gage`` declare the output that the CLI's writer
+dispatcher (`io/writers.py`) produces.  Not ported yet: the other geometry
+kinds (spheres, cylinders, STL, HDF5, SA meshes), planes and open
+boundaries.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..defs import ParticleType, PostProcessType, SimFlags
+from ..defs import ParticleType, PostProcessType, SimFlags, WriterType
 from ..framework import SimFramework, setup_framework
 from ..geometry import primitives as geo
 from ..ops import eos
@@ -84,6 +85,7 @@ class Problem:
         self.options = dict(options or {})
         self.geometries: List[Geometry] = []
         self.testpoints: List[Tuple[float, float, float]] = []
+        self.gages: List[Tuple[float, ...]] = []  # (x, y, w) wave gage positions
         self.origin = (0.0, 0.0, 0.0)
         self.size = (1.0, 1.0, 1.0)
         self.deltap = 0.0
@@ -91,7 +93,8 @@ class Problem:
         self.water_level: Optional[float] = None  # hydrostatic init level
         self.max_fall: Optional[float] = None
         self.dyn_layers = 3
-        self.vtk_write_every = 0.0  # recorded for the writers slice
+        self.vtk_write_every = 0.0
+        self.writer_freqs: Dict[str, float] = {}  # extra writers (legacy/text)
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
@@ -171,10 +174,22 @@ class Problem:
         self.dyn_layers = n
 
     def add_writer(self, writer_type=None, freq: float = 0.0):
-        """Record a particle-dump writer (reference ``add_writer``).  The
-        writers are a later slice of the port: the frequency is kept and
-        nothing is written."""
-        self.vtk_write_every = freq
+        """Register a particle-dump writer (reference ``add_writer``,
+        `src/ProblemCore.cc`).  Default/unknown types map to the VTK writer;
+        ``WriterType.VTKLEGACYWRITER``/``TEXTWRITER`` select those formats."""
+        if writer_type == WriterType.VTKLEGACYWRITER:
+            self.writer_freqs["vtklegacy"] = freq
+        elif writer_type == WriterType.TEXTWRITER:
+            self.writer_freqs["text"] = freq
+        else:
+            self.vtk_write_every = freq
+
+    def add_gage(self, x: float, y: float, w: float = 0.0):
+        """Wave gage at (x, y) (reference ``add_gage``, `ProblemCore.h:477`).
+        ``w`` is the gage smoothing length: surface-particle elevations are
+        Wendland-2D averaged within 2w of the gage (GPUSPH.cc:1650-1667);
+        w=0 takes the nearest surface particle's z."""
+        self.gages.append((x, y, w))
 
     def use_planes(self):
         raise NotImplementedError("plane boundaries are not ported yet")
@@ -318,10 +333,20 @@ class Problem:
             # (reference addPostProcess(TESTPOINTS), e.g. DamBreak3D.cu:63)
             self.fw = dataclasses.replace(
                 self.fw, postprocess=self.fw.postprocess + (PostProcessType.TESTPOINTS,))
+        if self.gages and PostProcessType.SURFACE_DETECTION not in self.fw.postprocess:
+            # wave gages average SURFACE-flagged particle elevations
+            # (GPUSPH.cc:1650-1667), so gages imply surface detection
+            self.fw = dataclasses.replace(
+                self.fw,
+                postprocess=self.fw.postprocess + (PostProcessType.SURFACE_DETECTION,))
         # generic override of the cell capacity, e.g. --max_ppc 64
         max_ppc = self.get_option("max_ppc", 0)
         if max_ppc:
             self._update_sp(max_parts_per_cell=int(max_ppc))
+        # generic override of the repacking depth, e.g. --repack_maxiter 20
+        repack_maxiter = self.get_option("repack_maxiter", 0)
+        if repack_maxiter:
+            self._update_sp(repack_maxiter=int(repack_maxiter))
         self.fw = self.fw.finalize()
         if not max_ppc and self.fw.sp.max_parts_per_cell == SimParams().max_parts_per_cell:
             self._probe_cells()

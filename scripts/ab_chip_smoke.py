@@ -8,17 +8,20 @@ Each directory holds a whole tree, for example one unpacked with
 other in the order parent, change, change, parent, so that a drift of the
 card's clocks over the call shows as a difference between a tree's two
 runs.  Each run's whole output goes to ``LOG_DIR/smoke_<n>_<tree>.log``;
-the card's line, each run's exit code and its build, main-path, kernel and
-golden lines are printed as they are.  Exits non-zero if any run failed.
+the card's line, each run's exit code and wall time (host clock, the
+kernels' build included) and its build, main-path, kernel, golden and
+output-cost lines are printed as they are.  Exits non-zero if any run
+failed.
 """
 from __future__ import annotations
 
 import argparse
 import subprocess
 import sys
+import time
 from pathlib import Path
 
-KEEP = ("[2 build]", "[4 ", "[5 golden]")
+KEEP = ("[2 build]", "[4 ", "[5 golden]", "[6 cost]")
 
 
 def main(argv=None) -> int:
@@ -37,10 +40,12 @@ def main(argv=None) -> int:
     print(card or "nvidia-smi unavailable", flush=True)
     failed = 0
     for n, tree in enumerate(("parent", "change", "change", "parent"), start=1):
+        t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=getattr(args, tree),
                               capture_output=True, text=True)
+        wall = time.perf_counter() - t0
         (args.out / f"smoke_{n}_{tree}.log").write_text(proc.stdout + proc.stderr)
-        print(f"run {n} {tree} rc={proc.returncode}", flush=True)
+        print(f"run {n} {tree} rc={proc.returncode} in {wall:.1f} s", flush=True)
         for ln in proc.stdout.splitlines():
             if ln.startswith(KEEP):
                 print(ln, flush=True)

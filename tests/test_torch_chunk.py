@@ -22,6 +22,7 @@ from gpusph_tpu_torch.integrator import make_sim_chunk
 from gpusph_tpu_torch.ops import integrate as tintegrate
 from gpusph_tpu_torch.ops.forces import ForcesOut as TForcesOut
 from gpusph_tpu_torch.problems.base import get_problem
+from torch_threads import share_cores  # noqa: F401  (autouse: threads per worker)
 
 DELTAP = 0.06
 RTOL = 1e-6  # same f32 formulas; libm and summation order may move an ulp

@@ -30,6 +30,7 @@ from gpusph_tpu_torch.ops.forces_kernel import (compute_forces_kernel,
 from gpusph_tpu_torch.ops.neighbors import build_cells, make_grid
 
 from test_forces import DP, make_random_scene
+from torch_threads import share_cores  # noqa: F401  (autouse: threads per worker)
 
 CASES = {
     "dyn_artvisc": dict(boundary="DYN_BOUNDARY", turb="ARTIFICIAL", kinvisc=0.0,

@@ -18,6 +18,7 @@ from gpusph_tpu_torch.convert import state_from_numpy
 from gpusph_tpu_torch.ops.block_plan import GPT, build_block_plan
 from gpusph_tpu_torch.ops.neighbors import build_cells, make_grid
 from gpusph_tpu_torch.problems.base import get_problem
+from torch_threads import share_cores  # noqa: F401  (autouse: threads per worker)
 
 
 def random_state(seed, n=600, cap=700, box=(0.5, 0.4, 0.3)):

@@ -26,6 +26,7 @@ from gpusph_tpu_torch.problems.base import get_problem
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import CPW, LANES, WARP, compaction, pair_stats  # noqa: E402
+from torch_threads import share_cores  # noqa: F401  (autouse: threads per worker)
 
 
 def random_state(seed, n=600, cap=700, box=(0.5, 0.4, 0.3)):

@@ -21,6 +21,7 @@ from gpusph_tpu_torch.ops import kernels as tkern
 from gpusph_tpu_torch.params import Fluid as TFluid
 from gpusph_tpu_torch.params import PhysParams as TPhysParams
 from gpusph_tpu_torch import state as tstate
+from torch_threads import share_cores  # noqa: F401  (autouse: threads per worker)
 
 RTOL = 1e-6
 

@@ -11,6 +11,7 @@ import gpusph_tpu_torch
 from gpusph_tpu_torch import cli
 from gpusph_tpu_torch.integrator import Simulator, make_sim_chunk, resolve_device
 from gpusph_tpu_torch.problems.base import get_problem
+from torch_threads import share_cores  # noqa: F401  (autouse: threads per worker)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "gpusph_tpu")
@@ -24,7 +25,8 @@ def _port_sources():
     return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "sweep_forces_cuda.py",
                     ROOT / "scripts" / "ab_chip_smoke.py",
                     ROOT / "tests" / "test_torch_forces_gpu.py",
-                    ROOT / "tests" / "test_torch_plan_invariants.py"]
+                    ROOT / "tests" / "test_torch_plan_invariants.py",
+                    ROOT / "tests" / "torch_threads.py"]
 
 
 def _imported_modules(path):
@@ -87,3 +89,53 @@ def test_unported_configurations_raise():
                        grid)
     with pytest.raises(NotImplementedError, match="plane boundaries"):
         get_problem("DamBreak3D")({"deltap": 0.1, "use_planes": True})
+
+
+def test_new_modules_fall_under_the_import_ban():
+    """The output path's modules are globbed with the rest of the package."""
+    names = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    for mod in ("io/vtk.py", "io/writers.py", "io/hotfile.py", "ops/pair.py",
+                "ops/postprocess.py", "repacking.py"):
+        assert f"gpusph_tpu_torch/{mod}" in names, mod
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--ndev", "2"], "multi-GPU slice"),
+    (["--debug", "timing"], r"chip_smoke.py \[4 layers\]"),
+], ids=["ndev", "debug_timing"])
+def test_unported_cli_flags_raise(tmp_path, argv, match):
+    """Unported flags name their slice, before anything runs or is written."""
+    out = tmp_path / "out"
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main(["DamBreak3D", "--deltap", "0.1", "--maxiter", "10", "--device", "cpu",
+                  "--dir", str(out)] + argv)
+    assert not out.exists()
+
+
+def test_flux_postprocess_raises():
+    import dataclasses
+
+    from gpusph_tpu_torch.defs import PostProcessType
+    from gpusph_tpu_torch.ops.postprocess import make_write_postprocess
+
+    p, grid, _ = _dambreak_small()
+    fw = dataclasses.replace(p.fw.finalize(),
+                             postprocess=(PostProcessType.FLUX_COMPUTATION,))
+    with pytest.raises(NotImplementedError, match="open-boundary slice"):
+        make_write_postprocess(fw, grid)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--checkpoint-every", "0.002"],
+    ["--repack-only"],
+], ids=["checkpoints", "repack_only"])
+def test_cli_output_paths_default_to_cuda(tmp_path, argv):
+    """Without --device the CLI's output, checkpoint and repack paths take
+    the card: without one they raise before writing anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the CPU-only case does not apply")
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["DamBreak3D", "--deltap", "0.1", "--maxiter", "10",
+                  "--dir", str(out)] + argv)
+    assert not out.exists()
