@@ -26,9 +26,12 @@ Runs on the CUDA card unless ``--device cpu`` is given.  Output goes to
 
 The last write of a run is forced: the final state is always written as a
 frame and, with checkpoints on, as a hotfile.  ``--resume`` takes a hotfile
-of either package and continues from its iteration.  Ported so far:
-DamBreak3D.  Not ported: multi-device runs (``--ndev``), and ``--debug
-timing``, whose counterpart is ``chip_smoke.py`` [4 layers].
+of either package and continues from its iteration.  Ported so far: the
+problems of ``problems/catalog.py`` (DamBreak3D, Poiseuille, StillWater,
+LockExchange, OpenChannel, BuoyancyTest, Spheric2, AccuracyTest, Objects,
+DynBoundsExample, ProblemExample).  Not ported: multi-device runs
+(``--ndev``), and ``--debug timing``, whose counterpart is
+``chip_smoke.py`` [4 layers].
 """
 from __future__ import annotations
 

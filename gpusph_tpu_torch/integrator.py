@@ -81,6 +81,8 @@ def _unported(fw: SimFramework, grid: CellGrid) -> Optional[str]:
         return "density summation"
     if fw.io is not None:
         return "open boundaries"
+    if fw.dem is not None:
+        return "DEM terrain (ops/dem.py, with DEMExample)"
     if not kernel_supported(fw, grid):
         return "the general pair path (configuration outside kernel_supported)"
     return None

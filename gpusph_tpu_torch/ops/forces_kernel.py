@@ -9,7 +9,8 @@ Counterpart of ``gpusph_tpu/ops/forces_pallas.py:564-984``.  A pass is
    flat tiles (`csrc/forces.cu` on the card; ``pair_forces_reference``, the
    plain PyTorch version, for tensors on the CPU);
 3. ``compute_forces_kernel``: un-binning to particle order and the finalize
-   step (gravity, moving-body masking, rho0 scaling, CFL maxima), as
+   step (gravity, moving-body masking, plane forces, rho0 scaling, CFL
+   maxima), as
    `finalizeforcesDevice` (`forces_kernel.def:4037-4110`) and ``dtreduce``
    (`forces.cu:557-600`).
 
@@ -47,6 +48,7 @@ from .kernels import F as kernF
 from .kernels import W as kernW
 from .kernels import gaussian_coeffs
 from .neighbors import CellGrid
+from .planes import apply_plane_forces
 
 # property-table columns
 C_POSX, C_POSY, C_POSZ = 0, 1, 2
@@ -460,8 +462,6 @@ def pair_forces(fw: SimFramework, grid: CellGrid, P: torch.Tensor,
 def compute_forces_kernel(fw: SimFramework, grid: CellGrid,
                           state: ParticleState, plan: BlockPlan) -> ForcesOut:
     """One forces pass of the *sorted* state over its rebuild-time plan."""
-    if fw.planes:
-        raise NotImplementedError("plane boundaries are not ported yet")
     if fw.dem is not None:
         raise NotImplementedError("DEM terrain is not ported yet")
     out = pair_forces(fw, grid, prop_table(fw, state), plan)
@@ -491,6 +491,9 @@ def finalize_forces(fw: SimFramework, state: ParticleState, plan: BlockPlan,
     DvDt = torch.where(is_fluid_c, DvDt + gvec, DvDt)
     if not fw.has_moving_bodies:
         DvDt = torch.where(is_fluid_c, DvDt, 0.0)
+    if fw.planes:
+        DvDt = apply_plane_forces(fw, state.pos, state.vel, state.mass,
+                                  is_fluid_c[:, 0], DvDt)
     f_num = fluid_num(state.info)
     rho0 = eos._per_fluid(pp, f_num, [f.rho0 for f in pp.fluids])
     DrDt = DrDt_phys / rho0

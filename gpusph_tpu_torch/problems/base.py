@@ -10,9 +10,10 @@ pair — the reference's ``fill_parts`` + ``copy_to_array``
 moves it to its device.
 
 ``add_writer`` and ``add_gage`` declare the output that the CLI's writer
-dispatcher (`io/writers.py`) produces.  Not ported yet: the other geometry
-kinds (spheres, cylinders, STL, HDF5, SA meshes), planes and open
-boundaries.
+dispatcher (`io/writers.py`) produces; ``add_plane`` declares a geometric
+plane boundary (`ops/planes.py`).  Not ported yet: STL, HDF5 and XYZ
+geometry, SA meshes, sediment and per-density masses, prescribed body
+motion callbacks and open boundaries.
 """
 from __future__ import annotations
 
@@ -70,7 +71,25 @@ class Geometry:
     points: np.ndarray  # [n,3] float64 particle positions
     fluid_idx: int = 0
     object_idx: int = 0
+    # per-particle mass and rest-density overrides (default: the fluid's
+    # rho0 * dp^3) and the initial velocity of every particle
+    mass: Optional[float] = None
+    density: Optional[float] = None
+    velocity: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     feedback: bool = False  # enableFeedback: accumulate forces on this body
+    # rigid-body overrides (reference Object::SetMass/SetInertia): total
+    # body mass and body-frame diagonal inertia; default = estimated from
+    # the particle cloud
+    body_mass: Optional[float] = None
+    inertia: Optional[Tuple[float, float, float]] = None
+
+
+@dataclasses.dataclass
+class Plane:
+    """Geometric plane boundary (reference `src/planes.h`)."""
+
+    point: Tuple[float, float, float]
+    normal: Tuple[float, float, float]
 
 
 PROBLEM_REGISTRY: Dict[str, type] = {}
@@ -84,6 +103,7 @@ class Problem:
     def __init__(self, options: Optional[dict] = None):
         self.options = dict(options or {})
         self.geometries: List[Geometry] = []
+        self.planes: List[Plane] = []
         self.testpoints: List[Tuple[float, float, float]] = []
         self.gages: List[Tuple[float, ...]] = []  # (x, y, w) wave gage positions
         self.origin = (0.0, 0.0, 0.0)
@@ -130,6 +150,12 @@ class Problem:
         self.deltap = dp
         self._update_sp(deltap=dp)
 
+    def set_smoothing(self, sfactor: float):
+        self._update_sp(sfactor=sfactor)
+
+    def set_timestep(self, dt: float):
+        self._update_sp(dt=dt)
+
     def set_tend(self, tend: float):
         self._update_sp(tend=tend)
 
@@ -165,9 +191,20 @@ class Problem:
             if self.max_fall is None:
                 raise ValueError("set_max_fall before auto sound speed")
             c0 = 10.0 * math.sqrt(2 * self.get_gravity_magnitude() * self.max_fall)
-        f = dataclasses.replace(self.fw.pp.fluids[fluid_idx], gamma=gamma, c0=c0)
+        self._update_fluid(fluid_idx, gamma=gamma, c0=c0)
+
+    def set_kinematic_visc(self, fluid_idx: int, nu: float):
+        self._update_fluid(fluid_idx, kinematic_visc=nu)
+
+    def set_dynamic_visc(self, fluid_idx: int, mu: float):
+        self.set_kinematic_visc(fluid_idx, mu / self.fw.pp.fluids[fluid_idx].rho0)
+
+    def set_artificial_visc(self, alpha: float):
+        self._update_pp(artvisccoeff=alpha)
+
+    def _update_fluid(self, fluid_idx: int, **kw):
         fluids = list(self.fw.pp.fluids)
-        fluids[fluid_idx] = f
+        fluids[fluid_idx] = dataclasses.replace(fluids[fluid_idx], **kw)
         self._update_pp(fluids=tuple(fluids))
 
     def set_dynamic_boundaries_layers(self, n: int):
@@ -191,9 +228,6 @@ class Problem:
         w=0 takes the nearest surface particle's z."""
         self.gages.append((x, y, w))
 
-    def use_planes(self):
-        raise NotImplementedError("plane boundaries are not ported yet")
-
     # --- geometry ----------------------------------------------------------
     def make_universe_box(self, origin, size):
         self.origin = tuple(float(x) for x in origin)
@@ -214,6 +248,26 @@ class Problem:
         else:
             pts = np.zeros((0, 3))
         return self._add(Geometry(gtype, pts, **kw))
+
+    def add_sphere(self, gtype, fill, center, radius, **kw):
+        solid = fill == FillType.SOLID
+        layers = self.dyn_layers if (self.fw.dyn_boundary and not solid) else 1
+        pts = geo.fill_sphere(center, radius, self.deltap, solid=solid, layers=layers)
+        return self._add(Geometry(gtype, pts, **kw))
+
+    def add_cylinder(self, gtype, fill, center_base, radius, height, **kw):
+        solid = fill == FillType.SOLID
+        layers = self.dyn_layers if (self.fw.dyn_boundary and not solid) else 1
+        pts = geo.fill_cylinder(center_base, radius, height, self.deltap,
+                                solid=solid, layers=layers)
+        return self._add(Geometry(gtype, pts, **kw))
+
+    def add_points(self, gtype, pts: np.ndarray, **kw):
+        """Raw particle positions (the XYZFile/HDF5File reader analogue)."""
+        return self._add(Geometry(gtype, np.asarray(pts, np.float64), **kw))
+
+    def add_plane(self, point, normal):
+        self.planes.append(Plane(tuple(point), tuple(normal)))
 
     def add_testpoint(self, p):
         self.testpoints.append(tuple(p))
@@ -265,14 +319,20 @@ class Problem:
             if g.gtype not in (GeometryType.MOVING_BODY, GeometryType.FLOATING_BODY):
                 continue
             n = max(1, len(g.points))
-            total_mass = self.fw.pp.fluids[0].rho0 * self.deltap**3 * n
-            # crude inertia from the particle cloud (diagonal)
-            pts = (g.points - g.points.mean(axis=0)
-                   if len(g.points) else np.zeros((1, 3)))
-            pm = total_mass / n
-            inertia = tuple(
-                max(float(pm * ((pts**2).sum() - (pts[:, a] ** 2).sum())), 1e-9)
-                for a in range(3))
+            mass = (g.mass if g.mass is not None else
+                    (g.density or self.fw.pp.fluids[0].rho0) * self.deltap**3)
+            total_mass = g.body_mass if g.body_mass is not None else mass * n
+            if g.inertia is not None:
+                # analytic body-frame inertia (reference Object::SetInertia)
+                inertia = tuple(max(float(i), 1e-9) for i in g.inertia)
+            else:
+                # crude inertia from the particle cloud (diagonal)
+                pts = (g.points - g.points.mean(axis=0)
+                       if len(g.points) else np.zeros((1, 3)))
+                pm = total_mass / n
+                inertia = tuple(
+                    max(float(pm * ((pts**2).sum() - (pts[:, a] ** 2).sum())), 1e-9)
+                    for a in range(3))
             specs.append(BodySpec(
                 object_idx=g.object_idx,
                 mass=total_mass,
@@ -328,6 +388,10 @@ class Problem:
                for g in self.geometries):
             self.fw = dataclasses.replace(
                 self.fw, flags=self.fw.flags | SimFlags.ENABLE_MOVING_BODIES)
+        if self.planes:
+            self.fw = dataclasses.replace(
+                self.fw, flags=self.fw.flags | SimFlags.ENABLE_PLANES,
+                planes=tuple((p.point, p.normal) for p in self.planes))
         if self.testpoints and PostProcessType.TESTPOINTS not in self.fw.postprocess:
             # declaring test points implies the TESTPOINTS post-process pass
             # (reference addPostProcess(TESTPOINTS), e.g. DamBreak3D.cu:63)
@@ -391,7 +455,9 @@ class Problem:
             else:
                 continue
 
-            mass = self.fw.pp.fluids[g.fluid_idx].rho0 * dp**3
+            rho0 = (g.density if g.density is not None
+                    else self.fw.pp.fluids[g.fluid_idx].rho0)
+            mass = g.mass if g.mass is not None else rho0 * dp**3
             if ptype == ParticleType.FLUID or self.fw.dyn_boundary:
                 # DYN boundaries are hydrostatically filled too
                 # (reference ProblemAPI_1.cc:1772)
@@ -399,7 +465,7 @@ class Problem:
             else:
                 rho_t = np.zeros(n)
             pos_list.append(g.points)
-            vel_list.append(np.zeros((n, 3)))
+            vel_list.append(np.broadcast_to(np.asarray(g.velocity, np.float64), (n, 3)))
             rho_list.append(rho_t)
             mass_list.append(np.full(n, mass))
             info_list.append(np.full(n, make_info(ptype, flags, fluid_or_obj), np.int32))
@@ -427,25 +493,36 @@ class Problem:
             self._update_sp(**probed)
             self.fw = self.fw.finalize()
 
-        state = empty_state(capacity)  # a fresh state, filled in place
+        extras = {}
+        if self.fw.flags & SimFlags.ENABLE_INTERNAL_ENERGY:
+            extras["energy"] = torch.zeros((capacity,), dtype=torch.float32)
+        state = empty_state(capacity, extras)  # a fresh state, filled in place
         f32 = torch.float32
         state.pos[:n_total] = torch.as_tensor(pos)
         state.vel[:n_total] = torch.as_tensor(np.concatenate(vel_list), dtype=f32)
         state.rho[:n_total] = torch.as_tensor(np.concatenate(rho_list), dtype=f32)
         state.mass[:n_total] = torch.as_tensor(np.concatenate(mass_list), dtype=f32)
         state.info[:n_total] = torch.as_tensor(np.concatenate(info_list))
-        return grid, state
+        # problem-specific particle initialization hook (the reference's
+        # ProblemCore::initializeParticles, ProblemCore.h:597-609)
+        return grid, self.initialize_particles(grid, state)
+
+    def initialize_particles(self, grid: CellGrid, state: ParticleState) -> ParticleState:
+        """Override to set initial per-particle fields (velocity profiles,
+        densities, ...) after the fill (reference initializeParticles)."""
+        return state
 
 
 def get_problem(name: str) -> type:
-    from . import catalog  # noqa: F401  (registers the catalog)
+    from . import catalog  # registers the catalog
 
-    try:
+    if name in PROBLEM_REGISTRY:
         return PROBLEM_REGISTRY[name]
-    except KeyError:
-        raise SystemExit(
-            f"unknown problem '{name}'; available: "
-            + ", ".join(sorted(PROBLEM_REGISTRY))) from None
+    if name in catalog.NOT_PORTED:
+        raise NotImplementedError(
+            f"not ported yet: {name} needs {catalog.NOT_PORTED[name]}")
+    raise SystemExit(
+        f"unknown problem '{name}'; available: " + ", ".join(sorted(PROBLEM_REGISTRY)))
 
 
 __all__ = [
@@ -453,6 +530,7 @@ __all__ = [
     "Geometry",
     "GeometryType",
     "FillType",
+    "Plane",
     "PROBLEM_REGISTRY",
     "get_problem",
 ]

@@ -1,0 +1,275 @@
+"""Port vs JAX package on the catalog problems that run on the forces kernel:
+the problem builds, one chunk of five of them, the plane forces and
+Poiseuille's steady start.
+
+Every scene is cut to a few thousand particles; inputs reach both packages
+as the same numpy arrays (``convert.py``).
+"""
+import dataclasses
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpusph_tpu import bodies as jbodies
+from gpusph_tpu.integrator import make_sim_chunk as jmake_sim_chunk
+from gpusph_tpu.ops.planes import apply_plane_forces as japply_plane_forces
+from gpusph_tpu.problems.base import get_problem as jget_problem
+
+from gpusph_tpu_torch import bodies as tbodies
+from gpusph_tpu_torch.convert import bodies_to_numpy, state_from_numpy, state_to_numpy
+from gpusph_tpu_torch.geometry import primitives as geo
+from gpusph_tpu_torch.integrator import make_sim_chunk
+from gpusph_tpu_torch.ops.forces_kernel import kernel_supported
+from gpusph_tpu_torch.ops.planes import apply_plane_forces
+from gpusph_tpu_torch.problems.base import GeometryType, get_problem
+from torch_threads import share_cores  # noqa: F401  (autouse: threads per worker)
+
+# the build sizes: a few thousand particles each
+CASES = {
+    "StillWater": dict(ppH=8),
+    "Poiseuille": dict(ppH=8),
+    "OpenChannel": dict(ppH=6),
+    "LockExchange": dict(ppH=8),
+    "AccuracyTest": dict(deltap=0.08),
+    "Spheric2": dict(deltap=0.08),
+    "BuoyancyTest": dict(ppH=8),
+    "Objects": dict(deltap=0.05),
+    "DynBoundsExample": dict(deltap=1 / 12),
+    "ProblemExample": dict(deltap=0.15),
+    "DamBreak3D": dict(deltap=0.06, use_planes=True),
+}
+RTOL = 1e-6  # same f32 formulas; libm may move an ulp
+
+
+def _fields(obj):
+    """A dataclass's fields as a comparable dict (NaN as a string)."""
+    return {k: "nan" if v != v else v for k, v in dataclasses.asdict(obj).items()}
+
+
+def _erase_objects_overlap(jp):
+    """The port's Objects erases the fluid inside its two floating bodies
+    (and within dp of them), which the JAX package keeps; apply the same
+    erase to a JAX Objects problem so that the rest can be compared."""
+    dp, side, cc = jp.deltap, 0.08, (0.5, 0.8 / 5 * 1.5, 0.5)
+    in_cube = geo.box_predicate(tuple(c - side / 2 for c in cc), (side,) * 3, margin=dp)
+    jp.erase_fluid_inside(lambda p: in_cube(geo.rotate_axis(
+        geo.rotate_axis(p, cc, 2, -math.pi / 4), cc, 1, -math.pi / 4)))
+    jp.erase_fluid_inside(geo.sphere_predicate((0.5, 0.8 / 5 * 2.5, 0.5), side / 2 + dp))
+
+
+def _build(name, opts):
+    jp = jget_problem(name)(dict(opts))
+    if name == "Objects":
+        _erase_objects_overlap(jp)
+    jgrid, jst = jp.build()
+    tp = get_problem(name)(dict(opts))
+    tgrid, tst = tp.build()
+    return jp, jgrid, jst, tp, tgrid, tst
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_problem_build_matches(name):
+    jp, jgrid, jst, tp, tgrid, tst = _build(name, CASES[name])
+    for f in ("origin", "ncells", "cell_size", "periodic", "order"):
+        assert getattr(tgrid, f) == getattr(jgrid, f), f
+    assert kernel_supported(tp.fw.finalize(), tgrid)
+    got = state_to_numpy(tst)
+    for k in ("pos", "vel", "mass", "info", "id"):
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(jst, k)), err_msg=k)
+    np.testing.assert_allclose(got["rho"], np.asarray(jst.rho), rtol=RTOL, atol=1e-9)
+    assert sorted(got["extras"]) == sorted(jst.extras)
+    for k, v in got["extras"].items():
+        np.testing.assert_array_equal(v, np.asarray(jst.extras[k]), err_msg=k)
+    for f in ("max_blocks", "max_block_groups", "max_run_extent", "max_flat_tiles",
+              "max_parts_per_cell", "slength", "influenceradius", "dt", "tend",
+              "dtadaptfactor", "sfactor"):
+        assert getattr(tp.fw.sp, f) == getattr(jp.fw.sp, f), f
+    assert tp.fw.flags == int(jp.fw.flags)
+    assert tp.fw.planes == jp.fw.planes
+    assert _fields(tp.fw.pp) == _fields(jp.fw.pp)
+    assert [int(p) for p in tp.fw.postprocess] == [int(p) for p in jp.fw.postprocess]
+    jspecs, tspecs = jp.body_specs(), tp.body_specs()
+    assert len(tspecs) == len(jspecs)
+    for a, b in zip(jspecs, tspecs):
+        assert (b.object_idx, b.mass, b.inertia, b.floating) == \
+            (a.object_idx, a.mass, a.inertia, a.floating)
+
+
+# particles of each problem at its default options: the full-width scenes of
+# chip_smoke.py phase 7 and PERF.md
+DEFAULT_PARTICLES = {
+    "StillWater": 50771, "Poiseuille": 37888, "OpenChannel": 41280,
+    "LockExchange": 119925, "AccuracyTest": 133276, "Spheric2": 149595,
+    "BuoyancyTest": 45387, "Objects": 37725, "DynBoundsExample": 561152,
+    "ProblemExample": 625835,
+}
+
+
+@pytest.mark.parametrize("name", list(DEFAULT_PARTICLES))
+def test_default_width_build(name):
+    """Each problem at its default options (the port alone: the JAX builds
+    at this width take minutes) holds the particles the card runs, stays on
+    the forces kernel, and its cells hold the initial occupancy."""
+    from gpusph_tpu_torch.ops.neighbors import build_cells
+
+    p = get_problem(name)({})
+    grid, state = p.build()
+    assert int(state.count_active()) == DEFAULT_PARTICLES[name]
+    fw = p.fw.finalize()
+    assert kernel_supported(fw, grid)
+    _, aux = build_cells(grid, state)
+    assert int(aux.max_occupancy) <= fw.sp.max_parts_per_cell
+    assert bool(torch.isfinite(state.rho).all())
+
+
+def test_objects_erases_the_fluid_inside_its_bodies():
+    """The JAX Objects leaves fluid inside its floating bodies (a fluid
+    particle closer than dp/5 to a body particle); the port's nearest fluid
+    particle is at least dp/2 away."""
+    def nearest(p):
+        body = np.concatenate([g.points for g in p.geometries
+                               if g.gtype == GeometryType.FLOATING_BODY])
+        fluid = np.concatenate([g.points for g in p.geometries
+                                if g.gtype == GeometryType.FLUID])
+        return np.sqrt(((fluid[:, None] - body[None]) ** 2).sum(-1)).min()
+
+    jp = jget_problem("Objects")({"deltap": 0.05})
+    tp = get_problem("Objects")({"deltap": 0.05})
+    assert nearest(jp) < 0.2 * jp.deltap
+    assert nearest(tp) >= 0.5 * tp.deltap
+
+
+# one chunk per new branch of the kernel path, with the steps in the chunk:
+# the plain version evaluates 64 x 128 pair slots per tile on the CPU, and
+# Objects needs dp 0.04 for its sphere to hold particles (6,088 particles,
+# 598 tiles), so its chunk is cut to 2 steps (4 forces passes)
+CHUNK_CASES = {
+    "Poiseuille": (dict(ppH=8), 10),  # periodic X/Y, Morris, harmonic mean
+    "LockExchange": (dict(ppH=8), 10),  # two fluids, SPH_F2
+    "Objects": (dict(deltap=0.04), 2),  # LJ, Ferrari, two floating bodies
+    "AccuracyTest": (dict(deltap=0.12), 10),  # internal energy
+    "DamBreak3D": (dict(deltap=0.06, use_planes=True), 10),  # six planes
+}
+
+
+@pytest.mark.parametrize("name", list(CHUNK_CASES))
+def test_one_chunk_matches(name):
+    """One chunk (rebuild + predictor/corrector steps) of the port on the
+    CPU against the JAX chunk on its XLA pair path.  Both start from the
+    JAX build.  The states are compared by particle id: jit compiles the
+    JAX cell hash's division differently from the port (and from its own
+    eager code), so particles that sit exactly on a cell face may sort into
+    the neighbouring cell.  Tolerances of tests/test_torch_chunk.py: pos
+    1e-6 m, vel 1e-5 m/s, rho 1e-6, dt rtol 1e-5 (summation order).  The
+    body force and torque are f32 sums of particle forces that cancel across
+    a body's faces: they are held at 1e-4 of their largest component."""
+    opts, steps = CHUNK_CASES[name]
+    jp, jgrid, jst, tp, tgrid, _ = _build(name, opts)
+    jfw, tfw = (dataclasses.replace(p.fw, simparams=dataclasses.replace(
+        p.fw.sp, buildneibsfreq=steps)).finalize() for p in (jp, tp))
+    tst = state_from_numpy(jst)
+    jspecs, tspecs = jp.body_specs(), tp.body_specs()
+    jb = jbodies.init_bodies_state(jspecs, jst)
+    tb = tbodies.init_bodies_state(tspecs, tst)
+    dt0 = np.float32(tfw.sp.dt or 0.1 * tfw.sp.slength / max(f.c0 for f in tfw.pp.fluids))
+
+    jchunk = jmake_sim_chunk(jfw, jgrid, use_pallas=False, bodies_specs=jspecs)
+    jout = jchunk(jst, jnp.float32(dt0), jnp.float32(0.0), jnp.int32(0), jb)
+    tchunk = make_sim_chunk(tfw, tgrid, bodies_specs=tspecs)
+    tout = tchunk(tst, torch.tensor(dt0), torch.tensor(0.0, dtype=torch.float32), 0, tb)
+
+    js, ts = state_to_numpy(state_from_numpy(jout[0])), state_to_numpy(tout[0])
+    jo, to = np.argsort(js["id"]), np.argsort(ts["id"])
+    np.testing.assert_array_equal(ts["id"][to], js["id"][jo])
+    np.testing.assert_array_equal(ts["info"][to], js["info"][jo])
+    for k, atol in (("pos", 1e-6), ("vel", 1e-5), ("rho", 1e-6)):
+        np.testing.assert_allclose(ts[k][to], js[k][jo], rtol=0, atol=atol, err_msg=k)
+    assert np.abs(ts["vel"]).max() > 1e-3  # the flow has started
+    if "energy" in js["extras"]:
+        e_t, e_j = ts["extras"]["energy"][to], js["extras"]["energy"][jo]
+        assert np.abs(e_j).max() > 0
+        np.testing.assert_allclose(e_t, e_j, rtol=0, atol=1e-5 * np.abs(e_j).max())
+    np.testing.assert_allclose(float(tout[1]), float(jout[1]), rtol=1e-5)
+    np.testing.assert_allclose(float(tout[2]), float(jout[2]), rtol=1e-5)
+    assert tout[3] == int(jout[3]) == steps
+    for k, v in bodies_to_numpy(tout[4]).items():
+        want = np.asarray(getattr(jout[4], k))
+        atol = 1e-4 * np.abs(want).max() if k in ("force", "torque") else 1e-5
+        np.testing.assert_allclose(v, want, rtol=1e-5, atol=atol, err_msg=k)
+    jstats, tstats = jout[5], tout[5]
+    for k in ("max_occupancy", "n_active"):
+        assert int(getattr(tstats, k)) == int(getattr(jstats, k)), k
+    np.testing.assert_allclose(float(tstats.max_accel), float(jstats.max_accel), rtol=1e-4)
+
+
+def test_plane_forces_match():
+    """apply_plane_forces on a seeded random state in front of three planes
+    (one tilted), with and without the viscous damping term."""
+    rng = np.random.default_rng(7)
+    n = 400
+    pos = rng.uniform(0.004, 0.046, (n, 3)).astype(np.float32)
+    vel = rng.normal(0, 0.5, (n, 3)).astype(np.float32)
+    mass = np.full(n, 8e-3, np.float32)
+    is_fluid = rng.uniform(size=n) < 0.8
+    dvdt = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    planes = (((0.0, 0.0, 0.0), (0.0, 0.0, 1.0)), ((0.05, 0.0, 0.0), (-1.0, 0.0, 0.0)),
+              ((0.0, 0.0, -0.01), (0.0, 1.0, 1.0)))
+    for kinvisc in (0.0, 1e-3):
+        fws = []
+        for p in (jget_problem("ProblemExample")({"deltap": 0.02}),
+                  get_problem("ProblemExample")({"deltap": 0.02})):
+            p.set_kinematic_visc(0, kinvisc)
+            fws.append(dataclasses.replace(
+                p.fw, planes=planes,
+                physparams=dataclasses.replace(p.fw.pp, dcoeff=50.0)).finalize())
+        jfw, tfw = fws
+        assert _fields(tfw.pp) == _fields(jfw.pp)
+        want = np.asarray(japply_plane_forces(
+            jfw, jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(mass),
+            jnp.asarray(is_fluid), jnp.asarray(dvdt)))
+        got = apply_plane_forces(tfw, torch.as_tensor(pos), torch.as_tensor(vel),
+                                 torch.as_tensor(mass), torch.as_tensor(is_fluid),
+                                 torch.as_tensor(dvdt)).numpy()
+        assert np.abs(want - dvdt).max() > 1.0  # the planes act
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=RTOL * np.abs(want).max())
+
+
+def test_poiseuille_steady_init_matches():
+    opts = {"ppH": 8, "steady-init": True}
+    _, jst = jget_problem("Poiseuille")(dict(opts)).build()
+    tp = get_problem("Poiseuille")(dict(opts))
+    _, tst = tp.build()
+    np.testing.assert_array_equal(tst.vel.numpy(), np.asarray(jst.vel))
+    assert float(tst.vel[:, 0].max()) == pytest.approx(tp.compute_poiseuille_vel(0.0), rel=0.02)
+
+
+def test_geometry_api_matches():
+    """add_sphere, add_cylinder and add_points with their overrides, solid
+    and border-filled on a DYN framework (three border layers), against the
+    JAX Problem API."""
+    from gpusph_tpu.problems.base import FillType as JFill
+    from gpusph_tpu.problems.base import GeometryType as JGeom
+    from gpusph_tpu_torch.problems.base import FillType
+
+    probs = []
+    for p, G, F in ((jget_problem("DamBreak3D")({"deltap": 0.1}), JGeom, JFill),
+                    (get_problem("DamBreak3D")({"deltap": 0.1}), GeometryType, FillType)):
+        for fill, x in ((F.SOLID, 0.8), (F.BORDER, 1.2)):
+            p.add_sphere(G.FLOATING_BODY, fill, (x, 0.3, 0.3), 0.17, density=500.0)
+            p.add_cylinder(G.FIXED_BOUNDARY, fill, (x - 0.5, 0.3, 0.0), 0.12, 0.25)
+        p.add_points(G.FLUID, [[0.2, 0.2, 0.2], [0.25, 0.2, 0.2]], velocity=(0.5, 0.0, -0.1))
+        probs.append(p)
+    jp, tp = probs
+    for a, b in zip(jp.geometries, tp.geometries):
+        np.testing.assert_array_equal(b.points, a.points)
+        assert (int(b.gtype), b.density, b.velocity) == (int(a.gtype), a.density, a.velocity)
+    _, jst = jp.build()
+    _, tst = tp.build()
+    got = state_to_numpy(tst)
+    for k in ("pos", "vel", "mass", "info"):
+        np.testing.assert_array_equal(got[k], np.asarray(getattr(jst, k)), err_msg=k)
+    assert [(b.object_idx, b.mass, b.inertia) for b in tp.body_specs()] == \
+        [(b.object_idx, b.mass, b.inertia) for b in jp.body_specs()]
