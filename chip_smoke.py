@@ -33,7 +33,17 @@ Phases, one line each; any failure exits non-zero and prints no ``ok`` line:
    final state at phase 3's tolerances); the JAX goldens of
    ``tests/references`` that the JAX package still meets, at the options of
    ``scripts/check_problem.py``, against phase 5's limit; Poiseuille from its
-   steady start against the analytic profile.
+   steady start against the analytic profile;
+8. prescribed body motion, the density filters and the effective viscosity:
+   each configuration of ``SLICE`` (DamBreakGate, WaveTank, SolitaryWave,
+   SlidingWedge, OffshorePile, PoiseuillePapanastasiou and DamBreak3D with
+   MLS) at its default width, ``Simulator.run`` for 50 iterations with
+   phase 7's checks, its chunk ms from CUDA events and the ms of its
+   in-loop neighbor passes (filters, shear rate); for each motion problem
+   one chunk from inside its bodies' motion windows, each body particle
+   where the callback's velocity integrated over the chunk puts it; one
+   MLS pass and one effective-viscosity pass at full width on the card
+   against the CPU; the JAX goldens of DamBreakGate and WaveTank.
 
 Then one JSON line describing each kernel, and last the ``ok`` line.
 """
@@ -234,8 +244,9 @@ def compaction(stats):
 
 
 def compare_kernel(fw, grid, state):
-    """Kernel vs plain version on the card for one sorted state.  Returns
-    (ok, max |DvDt| error, report dict)."""
+    """Kernel vs plain version on the card for one sorted state, with the
+    effective viscosity where the rheology needs it.  Returns (ok, max
+    |DvDt| error, report dict)."""
     import torch
 
     from gpusph_tpu_torch import SimFlags
@@ -245,11 +256,15 @@ def compare_kernel(fw, grid, state):
                                                     prop_table)
     from gpusph_tpu_torch.ops.neighbors import build_cells
 
+    from gpusph_tpu_torch.ops.visc import effective_viscosity
+
     st, aux = build_cells(grid, state)
     plan = build_block_plan(fw, grid, st, aux)
-    P = prop_table(fw, st)
-    got = finalize_forces(fw, st, plan, pair_forces(fw, grid, P, plan))
-    ref = finalize_forces(fw, st, plan, pair_forces_reference(fw, grid, P, plan))
+    effvisc = (effective_viscosity(fw, grid, st, aux)
+               if fw.visc.needs_effective_visc else None)
+    P = prop_table(fw, st, effvisc)
+    got = finalize_forces(fw, st, plan, pair_forces(fw, grid, P, plan), effvisc)
+    ref = finalize_forces(fw, st, plan, pair_forces_reference(fw, grid, P, plan), effvisc)
     torch.cuda.synchronize()
     act = st.active
     rep = {}
@@ -409,6 +424,259 @@ def catalog_phase(card):
         f"the peak {v_ref.max():.6g} m/s (limit L2 {POISEUILLE_L2}) [{card}]")
     if not l2 <= POISEUILLE_L2:
         fail("Poiseuille: the velocity profile is off the analytic one")
+
+
+# phase 8: the configurations of prescribed body motion, the density filters
+# and the effective viscosity, at their default widths, cut to SLICE_ITERS
+# iterations ("DamBreak3D-mls" is DamBreak3D with its density-diffusion 0)
+SLICE = {"DamBreakGate": {}, "WaveTank": {}, "SolitaryWave": {}, "SlidingWedge": {},
+         "OffshorePile": {}, "PoiseuillePapanastasiou": {},
+         "DamBreak3D-mls": {"density-diffusion": 0}}
+SLICE_ITERS = 50
+# the motion check: one chunk from a time inside every body's motion window;
+# each body particle within MOTION_RTOL x the body's displacement +
+# MOTION_ATOL metres of where the callback's velocity, integrated over the
+# chunk on the host (a midpoint sum of the steps against the integral, and
+# f32 positions), puts it
+MOTION_T0 = {"DamBreakGate": 0.15, "WaveTank": 0.5, "SolitaryWave": 0.5, "SlidingWedge": 1.0,
+             "OffshorePile": 0.5}
+MOTION_RTOL = 1e-3
+MOTION_ATOL = 5e-6
+# the in-loop neighbor passes on the card against the CPU at full width: the
+# pair sums are taken in another order, and MLS solves a 4x4 system per
+# particle, whose condition number scales their rounding.  The shear rate is
+# a velocity gradient: its components are held at the field's scale
+# (SHEAR_ATOL_FRAC x max).  The Papanastasiou term takes 1 - exp(-m|S|) in
+# f32 (the JAX package's formula) from m|S| = 1e-4 up, which keeps only
+# 2^-24 / 1e-4 = 6e-4 of relative precision there, and the card's expf and
+# the CPU's may differ by an ulp: the first chip run read 2.02e-4 against
+# rtol 1e-4 at such a particle (PERF.md, PR 8), so the effective viscosity
+# is held at EFFVISC_RTOL
+PASS_RTOL = 1e-4
+PASS_ATOL_FRAC = 1e-6
+SHEAR_ATOL_FRAC = 1e-5
+EFFVISC_RTOL = 1e-3
+# the goldens of tests/references that the JAX package meets with drift 0
+# (scripts/check_problem.py NAME --cpu --maxiter 100), at its options
+SLICE_GOLDENS = {"DamBreakGate": dict(deltap=0.04), "WaveTank": dict(deltap=0.04)}
+
+
+def slice_problem(name, **extra):
+    """The problem of a SLICE key, built at its options and ``extra``."""
+    from gpusph_tpu_torch.problems.base import get_problem
+
+    prob = get_problem(name.split("-")[0])({**SLICE[name], **extra})
+    return (prob, *prob.build())
+
+
+def neighbor_passes(fw, grid, st):
+    """The in-loop neighbor passes of ``fw`` on the sorted ``st``: a dict of
+    name -> (function of no argument, passes per chunk)."""
+    import torch
+
+    from gpusph_tpu_torch.ops.filters import FILTERS
+    from gpusph_tpu_torch.ops.neighbors import build_cells
+    from gpusph_tpu_torch.ops.visc import effective_viscosity
+
+    sts, aux = build_cells(grid, st)
+    cells = torch.nonzero(aux.cell_count[:grid.n_cells]).squeeze(1)
+    steps = fw.sp.buildneibsfreq
+    out = {}
+    for ftype, freq in fw.filters:
+        fn = FILTERS[ftype]
+        out[fn.__name__] = (lambda fn=fn: fn(fw, grid, sts, aux, cells=cells), steps / freq)
+    if fw.visc.needs_effective_visc:
+        out["effective_viscosity"] = (
+            lambda: effective_viscosity(fw, grid, sts, aux, cells=cells), 2 * steps)
+    return out
+
+
+def motion_check(name, prob, grid, state0, fw, dev, card):
+    """One chunk of ``name`` from MOTION_T0; fails unless every prescribed
+    body moved as its callback says."""
+    import torch
+
+    from gpusph_tpu_torch.bodies import init_bodies_state
+    from gpusph_tpu_torch.integrator import make_sim_chunk
+    from gpusph_tpu_torch.state import FG_MOVING_BOUNDARY, has_flag, object_num
+
+    specs = prob.body_specs()
+    t0 = MOTION_T0[name]
+    st0 = state0.to(dev)
+    bodies = init_bodies_state(specs, st0)
+    dt0 = fw.sp.dt or 0.1 * fw.sp.slength / max(f.c0 for f in fw.pp.fluids)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = make_sim_chunk(fw, grid, bodies_specs=specs)(
+        st0, torch.tensor(dt0, **f32), torch.tensor(t0, **f32), 0, bodies)
+    t1 = float(out[2])
+    ids0 = state0.id.numpy()
+    order1 = np.argsort(out[0].id.cpu().numpy())
+    pos1 = out[0].pos.cpu().numpy()[order1]  # by id: the build's row order
+    pos0 = state0.pos.numpy().astype(np.float64)
+    body_of = object_num(state0.info).numpy()
+    moving = has_flag(state0.info, FG_MOVING_BOUNDARY).numpy()
+    cg0 = bodies.cg.cpu().numpy().astype(np.float64)
+    # the callback integrated over [t0, t1] by the midpoint rule, on the host
+    n = 400
+    mids = t0 + (np.arange(n) + 0.5) * (t1 - t0) / n
+    worst, moved, report = 0.0, [], []
+    for spec in specs:
+        sel = moving & (body_of == spec.object_idx)
+        if spec.motion is None or spec.object_idx == 0 or not sel.any():
+            continue  # no prescribed motion, or a geometry too thin to hold particles
+        vel = [spec.motion(torch.tensor(t, dtype=torch.float32)) for t in mids]
+        disp = sum(lv.double().numpy() for lv, _ in vel) * (t1 - t0) / n
+        theta = sum(av.double().numpy() for _, av in vel) * (t1 - t0) / n
+        angle = float(np.linalg.norm(theta))
+        k = theta / angle if angle > 0 else np.zeros(3)
+        arm = pos0[sel] - cg0[spec.object_idx]
+        rot = (arm * np.cos(angle) + np.cross(k, arm) * np.sin(angle)
+               + k * (arm @ k)[:, None] * (1 - np.cos(angle)))
+        want = cg0[spec.object_idx] + disp + rot
+        got = pos1[ids0[sel]]
+        shift = float(np.abs(want - pos0[sel]).max())
+        err = float(np.abs(got - want).max())
+        limit = MOTION_RTOL * shift + MOTION_ATOL
+        worst = max(worst, err - limit)
+        moved.append(shift)
+        report.append(f"body {spec.object_idx}: moved {shift:.6g} m, off by {err:.3g} "
+                      f"(limit {limit:.3g})")
+    say(f"[8 motion] {name}: one chunk from t {t0} to {t1:.6g}: " + "; ".join(report)
+        + f" [{card}]")
+    if not moved or worst > 0 or min(moved) <= 10 * MOTION_ATOL:
+        fail(f"{name}: a prescribed body did not move as its callback says")
+
+
+def slice_phase(dev, card):
+    """Phase 8 (see the docstring)."""
+    import torch
+
+    from gpusph_tpu_torch.integrator import Simulator, make_sim_chunk
+    from gpusph_tpu_torch.ops import forces_kernel
+    from gpusph_tpu_torch.ops.block_plan import build_block_plan
+    from gpusph_tpu_torch.ops.eos import physical_density
+    from gpusph_tpu_torch.ops.filters import mls_filter
+    from gpusph_tpu_torch.ops.neighbors import build_cells
+    from gpusph_tpu_torch.ops.visc import effective_viscosity, shear_rate_tensor
+    from gpusph_tpu_torch.state import fluid_num, is_fluid
+
+    phase_t0 = time.perf_counter()
+    for name in SLICE:
+        t0 = time.perf_counter()
+        prob, grid, state0 = slice_problem(name)
+        build_s = time.perf_counter() - t0
+        specs = prob.body_specs()
+        sim = Simulator(prob.fw, grid, bodies_specs=specs, device="cuda")
+        fw = sim.fw
+        n0 = int(state0.count_active())
+        forces_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = sim.run(state0, maxiter=SLICE_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = forces_kernel.launches
+        n1 = int(st.count_active())
+        finite = all(bool(torch.isfinite(t).all()) for t in (st.pos, st.vel, st.rho))
+        # one more chunk from the run's end, and the kernel, on its final state
+        chunk = make_sim_chunk(fw, grid, bodies_specs=specs)
+        dt_t = torch.tensor(sim.dt, dtype=torch.float32, device=dev)
+        t_t = torch.tensor(sim.t, dtype=torch.float32, device=dev)
+        chunk_ms = cuda_ms(lambda: chunk(st, dt_t, t_t, sim.iterations, sim.bodies), 2,
+                           warmup=1)
+        sts, aux = build_cells(grid, st)
+        plan = build_block_plan(fw, grid, sts, aux)
+        P = forces_kernel.prop_table(fw, sts)
+        kernel_ms = cuda_ms(lambda: forces_kernel.pair_forces(fw, grid, P, plan), 20)
+        ok, _, rep = compare_kernel(fw, grid, st)
+        parity = ", ".join(f"{k} {v['max_abs_err']:.3g} of {v['ref_max']:.3g}"
+                           if isinstance(v, dict) else f"{k} {v}" for k, v in rep.items())
+        passes = neighbor_passes(fw, grid, st)
+        pass_ms = {k: (cuda_ms(fn, 3, warmup=1), per) for k, (fn, per) in passes.items()}
+        in_loop = sum(ms * per for ms, per in pass_ms.values())
+        say(f"[8 slice] {name}: {n0} particles (build {build_s:.3f} s, grid "
+            f"{'x'.join(map(str, grid.ncells))}, periodic {int(grid.periodic)}, "
+            f"{len(specs)} bodies), {SLICE_ITERS} iterations in {wall:.3f} s = "
+            f"{n0 * SLICE_ITERS / wall:.6g} particle-steps/s (host clock to synchronize, "
+            f"first chunk included); launches {launches}; n_active {n0} -> {n1}; finite "
+            f"{finite}; dt {sim.dt:.6g}; t {sim.t:.6g}; one chunk from iteration "
+            f"{sim.iterations} {chunk_ms:.6g} ms (CUDA events) = "
+            f"{n0 * fw.sp.buildneibsfreq / chunk_ms * 1e3:.6g} particle-steps/s; forces kernel "
+            f"{kernel_ms:.6g} ms/launch; in-loop neighbor passes "
+            + ("none" if not pass_ms else ", ".join(
+                f"{k} {ms:.6g} ms x {per:g} per chunk" for k, (ms, per) in pass_ms.items())
+               + f" = {in_loop:.6g} ms per chunk")
+            + f"; kernel vs plain {'ok' if ok else 'MISMATCH'}: {parity} [{card}]")
+        if launches != 2 * SLICE_ITERS:
+            fail(f"{name}: forces kernel launched {launches} times in {SLICE_ITERS} "
+                 f"iterations, expected {2 * SLICE_ITERS}")
+        if n1 != n0 or not finite or not sim.dt > 1e-10:
+            fail(f"{name}: n_active {n0} -> {n1}, finite {finite}, dt {sim.dt}")
+        if not ok:
+            fail(f"{name}: kernel disagrees with the plain version")
+        if name in MOTION_T0:
+            motion_check(name, prob, grid, state0, fw, dev, card)
+
+    # one MLS pass and the effective-viscosity passes at full width, card vs
+    # CPU, each on the state of a 20-iteration run; PoiseuillePapanastasiou
+    # from rest (the first chip run's state) and from the Newtonian profile,
+    # where the shear rate spans 0 to its wall value
+    for name, extra in (("DamBreak3D-mls", {}), ("PoiseuillePapanastasiou", {}),
+                        ("PoiseuillePapanastasiou", {"steady-init": True})):
+        prob, grid, state0 = slice_problem(name, **extra)
+        fw = prob.fw.finalize()
+        sim = Simulator(fw, grid, bodies_specs=prob.body_specs(), device="cuda")
+        st = sim.run(state0, maxiter=20)
+        sts, aux = build_cells(grid, st)
+        cpu_st, cpu_aux = build_cells(grid, st.to("cpu"))
+        if not torch.equal(sts.id.cpu(), cpu_st.id):
+            fail(f"{name}: the card and the CPU sort the particles differently")
+        sel = (sts.active & is_fluid(sts.info)).cpu()
+
+        def fluid_rows(v):
+            return v[sel.to(v.device)]
+
+        if name == "DamBreak3D-mls":
+            def density(s):
+                return fluid_rows(physical_density(fw.pp, s.rho, fluid_num(s.info)))
+
+            checks = [("mls_filter", "the fluid's physical density",
+                       lambda st_, aux_: density(mls_filter(fw, grid, st_, aux_)),
+                       PASS_RTOL, PASS_ATOL_FRAC)]
+        else:
+            checks = [
+                ("shear_rate_tensor", "its 6 components",
+                 lambda st_, aux_: fluid_rows(shear_rate_tensor(fw, grid, st_, aux_)),
+                 PASS_RTOL, SHEAR_ATOL_FRAC),
+                ("effective_viscosity", "the fluid's kinematic viscosity",
+                 lambda st_, aux_: fluid_rows(effective_viscosity(fw, grid, st_, aux_)),
+                 EFFVISC_RTOL, PASS_ATOL_FRAC)]
+        for what, of, fn, rtol, atol_frac in checks:
+            a = fn(sts, aux).cpu().numpy()
+            t0 = time.perf_counter()
+            b = fn(cpu_st, cpu_aux).numpy()
+            cpu_s = time.perf_counter() - t0
+            card_ms = cuda_ms(lambda: fn(sts, aux), 3, warmup=1)
+            diff = np.abs(a - b)
+            excess = diff - (atol_frac * float(np.abs(b).max()) + rtol * np.abs(b))
+            worst = np.unravel_index(int(np.argmax(excess)), b.shape)
+            say(f"[8 pass] {what} on {name}{' ' + str(extra) if extra else ''} "
+                f"({int(sts.count_active())} particles, after 20 iterations), {of}: card vs CPU max abs diff {float(diff.max()):.6g}, max "
+                f"rel {float((diff / np.maximum(np.abs(b), 1e-30)).max()):.3g} (rtol {rtol}, "
+                f"atol {atol_frac} x max {float(np.abs(b).max()):.6g}; worst at value "
+                f"{float(b[worst]):.6g}); {card_ms:.6g} ms on the card (CUDA events), "
+                f"{cpu_s:.3f} s on the host CPU [{card}]")
+            if not (np.isfinite(a).all() and float(excess.max()) <= 0):
+                fail(f"{what}: the card disagrees with the CPU")
+
+    for name, opts in SLICE_GOLDENS.items():
+        drift, limit, dt_ref, dt_now = golden_drift(name, opts, GOLDEN_ITERS)
+        say(f"[8 golden] {name} {opts}, {GOLDEN_ITERS} iterations: max drift pos "
+            f"{drift['pos']:.6g} (limit {limit:.6g}), vel {drift['vel']:.6g}, rho "
+            f"{drift['rho']:.6g}; dt_ref {dt_ref:.6g} dt_now {dt_now:.6g} [{card}]")
+        if not drift["pos"] <= limit:
+            fail(f"golden {name}: pos drift above 1e-3 x max|pos|")
+    say(f"[8 golden] phase 8 took {time.perf_counter() - phase_t0:.1f} s (host clock)")
 
 
 def run_cli(argv):
@@ -765,6 +1033,9 @@ def main() -> int:
 
     # --- 7. the catalog ----------------------------------------------------------
     catalog_phase(card)
+
+    # --- 8. body motion, filters, effective viscosity ----------------------------
+    slice_phase(dev, card)
 
     say(json.dumps({"kernels": [{
         "name": "forces",

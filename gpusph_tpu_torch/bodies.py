@@ -11,7 +11,8 @@ equations are solved in the body (principal) frame:
 
     I dw_b/dt + w_b x (I w_b) = R^T tau_world
 
-Prescribed motions are callbacks ``motion(t) -> (linvel[3], angvel[3])``;
+Prescribed motions are callbacks ``motion(t) -> (linvel f32[3], angvel
+f32[3])`` on the device of ``t``, built with :func:`body_velocity`;
 floating bodies integrate Newton-Euler from the fluid forces, reduced with
 ``index_add_`` over the particle object numbers.
 """
@@ -46,8 +47,8 @@ class BodySpec:
     mass: float = 1.0
     inertia: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     floating: bool = False
-    # prescribed kinematics: motion(t) -> (linvel[3], angvel[3]); ignored
-    # for floating bodies
+    # prescribed kinematics: motion(t) -> (linvel f32[3], angvel f32[3]) on
+    # t's device (body_velocity); ignored for floating bodies
     motion: Optional[Callable] = None
     # hinge / rotation center; None -> use center of gravity of particles
     rotation_center: Optional[Tuple[float, float, float]] = None
@@ -118,6 +119,20 @@ def identity_quat(n, device="cpu"):
     q = torch.zeros((n, 4), dtype=torch.float32, device=device)
     q[:, 0] = 1.0
     return q
+
+
+def body_velocity(t: torch.Tensor, linvel=(0.0, 0.0, 0.0),
+                  angvel=(0.0, 0.0, 0.0)) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What a motion callback returns: ``(linvel f32[3], angvel f32[3])`` on
+    the device of the 0-d f32 time ``t``.  Each component is a number or a
+    0-d tensor computed from ``t`` (``torch.where`` of a time window);
+    numbers are filled on the device, so nothing waits for it or copies from
+    the host."""
+    def vec(parts):
+        return torch.stack([c if isinstance(c, torch.Tensor) else torch.full_like(t, c)
+                            for c in parts]).to(torch.float32)
+
+    return vec(linvel), vec(angvel)
 
 
 def init_bodies_state(specs: Sequence[BodySpec], state: ParticleState) -> BodiesState:
@@ -205,9 +220,8 @@ def step_bodies(
             w_b = w_b + dw_b * dt
             angvel[i] = quat_rotate(q, w_b)
         elif s.motion is not None:
-            lv, av = s.motion(t)
-            linvel[i] = torch.as_tensor(lv, dtype=torch.float32, device=dev)
-            angvel[i] = torch.as_tensor(av, dtype=torch.float32, device=dev)
+            # the callback's tensors are on t's device: no host round trip
+            linvel[i], angvel[i] = s.motion(t)
         # bodies without motion stay fixed (feedback-only obstacles)
     cg = bodies.cg + linvel * dt
     # advance orientation by the step's incremental rotation
@@ -287,6 +301,7 @@ def bodies_from_dict(d: dict) -> Optional[BodiesState]:
 __all__ = [
     "BodySpec",
     "BodiesState",
+    "body_velocity",
     "bodies_to_dict",
     "bodies_from_dict",
     "BODY_FIELDS",

@@ -27,9 +27,11 @@ Runs on the CUDA card unless ``--device cpu`` is given.  Output goes to
 The last write of a run is forced: the final state is always written as a
 frame and, with checkpoints on, as a hotfile.  ``--resume`` takes a hotfile
 of either package and continues from its iteration.  Ported so far: the
-problems of ``problems/catalog.py`` (DamBreak3D, Poiseuille, StillWater,
-LockExchange, OpenChannel, BuoyancyTest, Spheric2, AccuracyTest, Objects,
-DynBoundsExample, ProblemExample).  Not ported: multi-device runs
+problems of ``problems/catalog.py`` (DamBreak3D, Poiseuille,
+PoiseuillePapanastasiou, StillWater, LockExchange, OpenChannel,
+BuoyancyTest, Spheric2, AccuracyTest, Objects, DynBoundsExample,
+ProblemExample, DamBreakGate, WaveTank, SolitaryWave, SlidingWedge,
+OffshorePile).  Not ported: multi-device runs
 (``--ndev``), and ``--debug timing``, whose counterpart is
 ``chip_smoke.py`` [4 layers].
 """

@@ -5,7 +5,10 @@ Integrator command program, `src/integrators/PredictorCorrectorIntegrator.cc:386
 and the GPUSPH manager loop, `src/GPUSPH.cc:747-759`).  A *chunk* rebuilds
 the neighbor structure once (NEIBS_LIST phase, `src/Integrator.cc:95-250`:
 cell sort + block plan) and then runs ``buildneibsfreq`` predictor/corrector
-steps in a Python loop.  Every forces pass goes through the forces kernel
+steps in a Python loop.  A step starts with the density filters that are
+due at its global iteration (FILTER phase, `ops/filters.py`); each forces
+pass computes the effective viscosity first where the rheology needs it
+(CALC_VISC, `ops/visc.py`) and then goes through the forces kernel
 (`ops/forces_kernel.py`): the CUDA kernel on the card, its plain version on
 the CPU.  The host loop handles termination and the overflow and dt checks.
 """
@@ -27,9 +30,11 @@ from .bodies import (
 from .defs import RheologyType, SimFlags, SPHFormulation, TurbulenceModel
 from .framework import SimFramework
 from .ops.block_plan import build_block_plan, plan_dims
+from .ops.filters import apply_filters
 from .ops.forces_kernel import compute_forces_kernel, kernel_supported
 from .ops.integrate import compute_dt, euler_step
 from .ops.neighbors import CellGrid, build_cells
+from .ops.visc import effective_viscosity
 from .state import ParticleState
 
 
@@ -67,16 +72,16 @@ def resolve_device(device=None) -> torch.device:
 
 def _unported(fw: SimFramework, grid: CellGrid) -> Optional[str]:
     """The missing slice a configuration needs, or None."""
-    if fw.filters:
-        return "density filters (Shepard/MLS)"
     if fw.sph_formulation == SPHFormulation.SPH_GRENIER:
         return "Grenier's formulation"
     if fw.visc.rheologytype == RheologyType.GRANULAR:
         return "granular rheology (Jacobi effective pressure)"
     if fw.sa_boundary:
         return "SA boundaries"
-    if fw.visc.turbmodel == TurbulenceModel.SPS or fw.visc.needs_effective_visc:
-        return "SPS / effective viscosity"
+    if fw.visc.turbmodel == TurbulenceModel.SPS:
+        return "SPS (with the general pair path)"
+    if fw.gcallback is not None:
+        return "variable gravity (gcallback, with the general pair path)"
     if fw.flags & SimFlags.ENABLE_DENSITY_SUM:
         return "density summation"
     if fw.io is not None:
@@ -95,8 +100,9 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
     Returns ``chunk(state, dt, t, iters, bodies) -> (state, dt, t, iters,
     bodies, stats)`` advancing ``buildneibsfreq`` steps after one neighbor
     rebuild.  ``dt`` and ``t`` are f32 0-d tensors on the state's device,
-    ``iters`` an int.  Raises NotImplementedError for a configuration whose
-    slice is not ported.
+    ``iters`` the global iteration as an int (from a hotfile on resume): the
+    filters' cadence follows it.  Raises NotImplementedError for a
+    configuration whose slice is not ported.
     """
     missing = _unported(fw, grid)
     if missing is not None:
@@ -106,10 +112,20 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
     adaptive = bool(fw.flags & SimFlags.ENABLE_DTADAPT)
     specs = tuple(bodies_specs or ())
     gravity = fw.pp.gravity
+    needs_effvisc = fw.visc.needs_effective_visc
 
-    def pc_step(state, dt, t, bodies, plan):
+    def forces(state, plan, aux, cells):
+        # CALC_VISC before each forces pass (JAX integrator.py:95-106)
+        effvisc = (effective_viscosity(fw, grid, state, aux, cells=cells)
+                   if needs_effvisc else None)
+        return compute_forces_kernel(fw, grid, state, plan, effvisc)
+
+    def pc_step(state, dt, t, bodies, plan, aux, cells, it):
+        # FILTER: the density filters due at global iteration it
+        state = apply_filters(fw, grid, state, aux, it, cells=cells)
+
         # PREDICTOR: forces at n, integrate to n* with dt/2
-        f1 = compute_forces_kernel(fw, grid, state, plan)
+        f1 = forces(state, plan, aux, cells)
         half = euler_step(fw, state, f1, dt * 0.5, step=1, grid=grid)
         if specs:
             b1 = reduce_body_forces(specs, state, f1.DvDt, bodies)
@@ -117,7 +133,7 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
             half = apply_body_motion(specs, half, b_half, dt * 0.5)
 
         # CORRECTOR: forces at n*, integrate n -> n+1 with dt
-        f2 = compute_forces_kernel(fw, grid, half, plan)
+        f2 = forces(half, plan, aux, cells)
         new_state = euler_step(fw, state, f2, dt, step=2, full_dt=dt, grid=grid)
         if specs:
             b2 = reduce_body_forces(specs, half, f2.DvDt, bodies)
@@ -130,9 +146,15 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
     def chunk(state: ParticleState, dt, t, iters: int, bodies: BodiesState):
         state, aux = build_cells(grid, state)
         plan = build_block_plan(fw, grid, state, aux)
+        cells = None
+        if fw.filters or needs_effvisc:
+            # the occupied cells for the neighbor passes, found once per
+            # chunk (waits for the device)
+            cells = torch.nonzero(aux.cell_count[:grid.n_cells]).squeeze(1)
         f2 = None
-        for _ in range(nsteps):
-            state, dt, t, bodies, f2 = pc_step(state, dt, t, bodies, plan)
+        for k in range(nsteps):
+            state, dt, t, bodies, f2 = pc_step(state, dt, t, bodies, plan, aux, cells,
+                                               iters + k)
         stats = StepStats(
             max_occupancy=aux.max_occupancy,
             n_active=aux.n_active,

@@ -25,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 
@@ -94,12 +95,15 @@ def kernel_supported(fw: SimFramework, grid: CellGrid) -> bool:
     return True
 
 
-def prop_table(fw: SimFramework, state: ParticleState) -> torch.Tensor:
+def prop_table(fw: SimFramework, state: ParticleState,
+               effvisc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """f32[(nG+1)*GROUP, NCOLS] property table in kernel column order.
 
     Rows ``capacity`` and beyond are pad rows (PAD_POS, rho=1, zeros
     elsewhere); inactive particles are parked at PAD_POS so that no stale
-    field can enter a pair.
+    field can enter a pair.  ``effvisc`` [N], the effective kinematic
+    viscosity of a shear-dependent rheology (``ops/visc.py``), takes the
+    place of the fluid's kinematic viscosity in the viscosity column.
     """
     pp = fw.pp
     N = state.capacity
@@ -126,9 +130,17 @@ def prop_table(fw: SimFramework, state: ParticleState) -> torch.Tensor:
     P[:N, C_FLUID] = (ptype == ParticleType.FLUID).float()
     P[:N, C_BOUND] = (ptype == ParticleType.BOUNDARY).float()
     if not fw.is_inviscid:
-        kinvisc = eos._per_fluid(pp, f_num, [f.kinematic_visc for f in pp.fluids])
+        kinvisc = _kinvisc(pp, f_num, effvisc)
         P[:N, C_DVISC] = kinvisc * rho_phys
     return P
+
+
+def _kinvisc(pp, f_num, effvisc):
+    """Per-particle kinematic viscosity: ``effvisc`` where given, else each
+    fluid's constant."""
+    if effvisc is not None:
+        return effvisc
+    return eos._per_fluid(pp, f_num, [f.kinematic_visc for f in pp.fluids])
 
 
 # --- the kernel's run-time parameters ---------------------------------------
@@ -460,18 +472,22 @@ def pair_forces(fw: SimFramework, grid: CellGrid, P: torch.Tensor,
 
 
 def compute_forces_kernel(fw: SimFramework, grid: CellGrid,
-                          state: ParticleState, plan: BlockPlan) -> ForcesOut:
-    """One forces pass of the *sorted* state over its rebuild-time plan."""
+                          state: ParticleState, plan: BlockPlan,
+                          effvisc: Optional[torch.Tensor] = None) -> ForcesOut:
+    """One forces pass of the *sorted* state over its rebuild-time plan;
+    ``effvisc`` as in ``prop_table``."""
     if fw.dem is not None:
         raise NotImplementedError("DEM terrain is not ported yet")
-    out = pair_forces(fw, grid, prop_table(fw, state), plan)
-    return finalize_forces(fw, state, plan, out)
+    out = pair_forces(fw, grid, prop_table(fw, state, effvisc), plan)
+    return finalize_forces(fw, state, plan, out, effvisc)
 
 
 def finalize_forces(fw: SimFramework, state: ParticleState, plan: BlockPlan,
-                    out: torch.Tensor) -> ForcesOut:
+                    out: torch.Tensor,
+                    effvisc: Optional[torch.Tensor] = None) -> ForcesOut:
     """Per-particle forces from the pair sums ``out`` [NOUT, n_blocks*B] of
-    ``pair_forces``: un-binning and the finalize step."""
+    ``pair_forces``: un-binning and the finalize step.  The viscous dt bound
+    reads ``effvisc`` where given."""
     pp = fw.pp
     # un-bin: per-particle gather from the [NOUT, n_blocks*B] slot layout;
     # inactive rows are zeroed
@@ -504,7 +520,7 @@ def finalize_forces(fw: SimFramework, state: ParticleState, plan: BlockPlan,
     max_accel = torch.sqrt(torch.where(is_fluid, accel2, 0.0).max())
     max_sspeed = torch.where(is_fluid, sspeed, 0.0).max()
     if not fw.is_inviscid:
-        kinvisc = eos._per_fluid(pp, f_num, [f.kinematic_visc for f in pp.fluids])
+        kinvisc = _kinvisc(pp, f_num, effvisc)
         max_kinvisc = torch.where(is_fluid, kinvisc, 0.0).max()
     else:
         max_kinvisc = torch.zeros((), dtype=torch.float32, device=state.pos.device)

@@ -10,17 +10,19 @@ pair — the reference's ``fill_parts`` + ``copy_to_array``
 moves it to its device.
 
 ``add_writer`` and ``add_gage`` declare the output that the CLI's writer
-dispatcher (`io/writers.py`) produces; ``add_plane`` declares a geometric
-plane boundary (`ops/planes.py`).  Not ported yet: STL, HDF5 and XYZ
-geometry, SA meshes, sediment and per-density masses, prescribed body
-motion callbacks and open boundaries.
+dispatcher (`io/writers.py`) produces, ``add_postprocess`` a post-process
+pass; ``add_plane`` declares a geometric plane boundary (`ops/planes.py`);
+``set_body_motion`` gives a moving body its prescribed kinematics
+(``bodies.body_velocity``).  Not ported yet: STL, HDF5 and XYZ geometry, SA
+meshes, sediment and per-density masses and open boundaries;
+``set_gravity_callback`` is taken, but ``make_sim_chunk`` raises for it.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +117,7 @@ class Problem:
         self.dyn_layers = 3
         self.vtk_write_every = 0.0
         self.writer_freqs: Dict[str, float] = {}  # extra writers (legacy/text)
+        self.body_motion: Dict[int, Callable] = {}  # geometry id -> motion(t)
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
@@ -202,6 +205,13 @@ class Problem:
     def set_artificial_visc(self, alpha: float):
         self._update_pp(artvisccoeff=alpha)
 
+    def set_gravity_callback(self, fn):
+        """Variable gravity ``t -> (gx, gy, gz)`` (reference
+        ``ProblemCore::g_callback``, used by Seiche).  The forces kernel takes
+        gravity as a constant, so ``make_sim_chunk`` raises for it until the
+        general pair path is ported."""
+        self.fw = dataclasses.replace(self.fw, gcallback=fn)
+
     def _update_fluid(self, fluid_idx: int, **kw):
         fluids = list(self.fw.pp.fluids)
         fluids[fluid_idx] = dataclasses.replace(fluids[fluid_idx], **kw)
@@ -227,6 +237,12 @@ class Problem:
         Wendland-2D averaged within 2w of the gage (GPUSPH.cc:1650-1667);
         w=0 takes the nearest surface particle's z."""
         self.gages.append((x, y, w))
+
+    def add_postprocess(self, pp: PostProcessType):
+        """Enable a write-time post-process pass (reference ``addPostProcess``;
+        the passes are ``ops/postprocess.py``)."""
+        if pp not in self.fw.postprocess:
+            self.fw = dataclasses.replace(self.fw, postprocess=self.fw.postprocess + (pp,))
 
     # --- geometry ----------------------------------------------------------
     def make_universe_box(self, origin, size):
@@ -309,13 +325,20 @@ class Problem:
         return rt.numpy().astype(np.float64)
 
     # --- bodies ------------------------------------------------------------
+    def set_body_motion(self, geom_id: int, motion: Callable):
+        """Prescribed kinematics of a moving body (reference
+        ``moving_bodies_callback``): ``motion(t) -> (linvel f32[3], angvel
+        f32[3])`` on the device of the 0-d f32 tensor ``t``, built with
+        ``bodies.body_velocity``."""
+        self.body_motion[geom_id] = motion
+
     def body_specs(self):
         """BodySpec list for MOVING/FLOATING geometries (object indices are
         assigned by ``build()``)."""
         from ..bodies import BodySpec
 
         specs = []
-        for g in self.geometries:
+        for gid, g in enumerate(self.geometries):
             if g.gtype not in (GeometryType.MOVING_BODY, GeometryType.FLOATING_BODY):
                 continue
             n = max(1, len(g.points))
@@ -338,6 +361,7 @@ class Problem:
                 mass=total_mass,
                 inertia=inertia,
                 floating=g.gtype == GeometryType.FLOATING_BODY,
+                motion=self.body_motion.get(gid),
             ))
         return tuple(specs)
 

@@ -1,6 +1,7 @@
 """Port vs JAX package on the catalog problems that run on the forces kernel:
-the problem builds, one chunk of five of them, the plane forces and
-Poiseuille's steady start.
+the problem builds, one chunk of eight configurations (with the prescribed
+body motion, the MLS filter and the effective viscosity among them), the
+plane forces, Poiseuille's steady start and SlidingWedge's scene.
 
 Every scene is cut to a few thousand particles; inputs reach both packages
 as the same numpy arrays (``convert.py``).
@@ -16,6 +17,7 @@ import torch
 from gpusph_tpu import bodies as jbodies
 from gpusph_tpu.integrator import make_sim_chunk as jmake_sim_chunk
 from gpusph_tpu.ops.planes import apply_plane_forces as japply_plane_forces
+from gpusph_tpu.problems.base import Plane as JPlane
 from gpusph_tpu.problems.base import get_problem as jget_problem
 
 from gpusph_tpu_torch import bodies as tbodies
@@ -40,6 +42,14 @@ CASES = {
     "DynBoundsExample": dict(deltap=1 / 12),
     "ProblemExample": dict(deltap=0.15),
     "DamBreak3D": dict(deltap=0.06, use_planes=True),
+    # prescribed body motion, the filters and the effective viscosity
+    "DamBreakGate": dict(deltap=0.06),
+    "WaveTank": dict(deltap=0.06),
+    "SolitaryWave": dict(deltap=0.06),
+    "SlidingWedge": dict(deltap=0.2),
+    "OffshorePile": dict(deltap=0.15),
+    "PoiseuillePapanastasiou": dict(ppH=8),
+    "DamBreak3D-mls": dict(deltap=0.06, **{"density-diffusion": 0}),
 }
 RTOL = 1e-6  # same f32 formulas; libm may move an ulp
 
@@ -60,12 +70,24 @@ def _erase_objects_overlap(jp):
     jp.erase_fluid_inside(geo.sphere_predicate((0.5, 0.8 / 5 * 2.5, 0.5), side / 2 + dp))
 
 
+def _sliding_wedge_as_port(jp, tp):
+    """The port's SlidingWedge builds another scene than the JAX package's,
+    which does not run (test_sliding_wedge_scene): give the JAX problem the
+    port's water, wedge and planes, so that the rest can be compared."""
+    for jg, tg in zip(jp.geometries, tp.geometries):
+        jg.points = tg.points.copy()
+    jp.planes = [JPlane(p.point, p.normal) for p in tp.planes]
+
+
 def _build(name, opts):
+    name = name.split("-")[0]  # "DamBreak3D-mls": a configuration of DamBreak3D
     jp = jget_problem(name)(dict(opts))
+    tp = get_problem(name)(dict(opts))
     if name == "Objects":
         _erase_objects_overlap(jp)
+    if name == "SlidingWedge":
+        _sliding_wedge_as_port(jp, tp)
     jgrid, jst = jp.build()
-    tp = get_problem(name)(dict(opts))
     tgrid, tst = tp.build()
     return jp, jgrid, jst, tp, tgrid, tst
 
@@ -91,11 +113,15 @@ def test_problem_build_matches(name):
     assert tp.fw.planes == jp.fw.planes
     assert _fields(tp.fw.pp) == _fields(jp.fw.pp)
     assert [int(p) for p in tp.fw.postprocess] == [int(p) for p in jp.fw.postprocess]
+    assert [(int(f), n) for f, n in tp.fw.filters] == [(int(f), n) for f, n in jp.fw.filters]
+    assert _fields(tp.fw.visc) == _fields(jp.fw.visc)
+    assert tp.gages == jp.gages
     jspecs, tspecs = jp.body_specs(), tp.body_specs()
     assert len(tspecs) == len(jspecs)
     for a, b in zip(jspecs, tspecs):
-        assert (b.object_idx, b.mass, b.inertia, b.floating) == \
-            (a.object_idx, a.mass, a.inertia, a.floating)
+        assert (b.object_idx, b.mass, b.inertia, b.floating, b.rotation_center) == \
+            (a.object_idx, a.mass, a.inertia, a.floating, a.rotation_center)
+        assert (b.motion is None) == (a.motion is None)
 
 
 # particles of each problem at its default options: the full-width scenes of
@@ -105,6 +131,8 @@ DEFAULT_PARTICLES = {
     "LockExchange": 119925, "AccuracyTest": 133276, "Spheric2": 149595,
     "BuoyancyTest": 45387, "Objects": 37725, "DynBoundsExample": 561152,
     "ProblemExample": 625835,
+    # periodic in y: its grid's fast axis must stay x for the forces kernel
+    "OffshorePile": 281714,
 }
 
 
@@ -142,16 +170,52 @@ def test_objects_erases_the_fluid_inside_its_bodies():
     assert nearest(tp) >= 0.5 * tp.deltap
 
 
-# one chunk per new branch of the kernel path, with the steps in the chunk:
-# the plain version evaluates 64 x 128 pair slots per tile on the CPU, and
-# Objects needs dp 0.04 for its sphere to hold particles (6,088 particles,
-# 598 tiles), so its chunk is cut to 2 steps (4 forces passes)
+def test_sliding_wedge_scene():
+    """The JAX SlidingWedge puts its water below its slope plane and on its
+    side walls; the port's water lies at least r0 = dp inside every plane,
+    at least dp from the wedge, and the wedge slides along the slope."""
+    opts = {"deltap": 0.2}
+    jp = jget_problem("SlidingWedge")(dict(opts))
+    tp = get_problem("SlidingWedge")(dict(opts))
+
+    def fluid(p):
+        return np.concatenate([g.points for g in p.geometries
+                               if int(g.gtype) == int(GeometryType.FLUID)])
+
+    def plane_dist(p, plane):
+        n = np.asarray(plane.normal) / np.linalg.norm(plane.normal)
+        return (fluid(p) - np.asarray(plane.point)) @ n
+
+    dp = tp.deltap
+    assert (plane_dist(jp, jp.planes[0]) < 0).mean() > 0.9  # under its slope
+    assert min(plane_dist(jp, q).min() for q in jp.planes[1:]) < 0.5 * dp
+    assert min(plane_dist(tp, q).min() for q in tp.planes) >= dp * (1 - 1e-9)
+    wedge = next(g.points for g in tp.geometries if g.gtype == GeometryType.MOVING_BODY)
+    gap = np.sqrt(((fluid(tp)[:, None] - wedge[None]) ** 2).sum(-1)).min()
+    assert gap >= dp * (1 - 1e-9)
+    (spec,) = tp.body_specs()
+    lin, _ = spec.motion(torch.tensor(1.0))
+    slope = np.asarray(tp.planes[0].normal)
+    assert float(lin.norm()) > 0.5 and abs(float(lin.numpy() @ slope)) < 1e-6
+
+
+# one chunk per new branch of the kernel path, with the steps in the chunk
+# and the time and global iteration it starts from: the plain version
+# evaluates 64 x 128 pair slots per tile on the CPU, and Objects needs dp
+# 0.04 for its sphere to hold particles (6,088 particles, 598 tiles), so its
+# chunk is cut to 2 steps (4 forces passes)
 CHUNK_CASES = {
-    "Poiseuille": (dict(ppH=8), 10),  # periodic X/Y, Morris, harmonic mean
-    "LockExchange": (dict(ppH=8), 10),  # two fluids, SPH_F2
-    "Objects": (dict(deltap=0.04), 2),  # LJ, Ferrari, two floating bodies
-    "AccuracyTest": (dict(deltap=0.12), 10),  # internal energy
-    "DamBreak3D": (dict(deltap=0.06, use_planes=True), 10),  # six planes
+    "Poiseuille": (dict(ppH=8), 10, 0.0, 0),  # periodic X/Y, Morris, harmonic mean
+    "LockExchange": (dict(ppH=8), 10, 0.0, 0),  # two fluids, SPH_F2
+    "Objects": (dict(deltap=0.04), 2, 0.0, 0),  # LJ, Ferrari, two floating bodies
+    "AccuracyTest": (dict(deltap=0.12), 10, 0.0, 0),  # internal energy
+    "DamBreak3D": (dict(deltap=0.06, use_planes=True), 10, 0.0, 0),  # six planes
+    # the gate lifts from t = 0.1 s: started at 0.12 s, its body moves
+    "DamBreakGate": (dict(deltap=0.06), 10, 0.12, 0),
+    # MLS every 10 iterations: from iteration 5 it runs at the chunk's 5th step
+    "DamBreak3D-mls": (dict(deltap=0.06, **{"density-diffusion": 0}), 10, 0.0, 5),
+    # the effective viscosity before each forces pass, on a sheared start
+    "PoiseuillePapanastasiou": (dict(ppH=8, **{"steady-init": True}), 10, 0.0, 0),
 }
 
 
@@ -159,14 +223,14 @@ CHUNK_CASES = {
 def test_one_chunk_matches(name):
     """One chunk (rebuild + predictor/corrector steps) of the port on the
     CPU against the JAX chunk on its XLA pair path.  Both start from the
-    JAX build.  The states are compared by particle id: jit compiles the
+    JAX build, at the case's time and global iteration.  The states are compared by particle id: jit compiles the
     JAX cell hash's division differently from the port (and from its own
     eager code), so particles that sit exactly on a cell face may sort into
     the neighbouring cell.  Tolerances of tests/test_torch_chunk.py: pos
     1e-6 m, vel 1e-5 m/s, rho 1e-6, dt rtol 1e-5 (summation order).  The
     body force and torque are f32 sums of particle forces that cancel across
     a body's faces: they are held at 1e-4 of their largest component."""
-    opts, steps = CHUNK_CASES[name]
+    opts, steps, t0, it0 = CHUNK_CASES[name]
     jp, jgrid, jst, tp, tgrid, _ = _build(name, opts)
     jfw, tfw = (dataclasses.replace(p.fw, simparams=dataclasses.replace(
         p.fw.sp, buildneibsfreq=steps)).finalize() for p in (jp, tp))
@@ -177,9 +241,9 @@ def test_one_chunk_matches(name):
     dt0 = np.float32(tfw.sp.dt or 0.1 * tfw.sp.slength / max(f.c0 for f in tfw.pp.fluids))
 
     jchunk = jmake_sim_chunk(jfw, jgrid, use_pallas=False, bodies_specs=jspecs)
-    jout = jchunk(jst, jnp.float32(dt0), jnp.float32(0.0), jnp.int32(0), jb)
+    jout = jchunk(jst, jnp.float32(dt0), jnp.float32(t0), jnp.int32(it0), jb)
     tchunk = make_sim_chunk(tfw, tgrid, bodies_specs=tspecs)
-    tout = tchunk(tst, torch.tensor(dt0), torch.tensor(0.0, dtype=torch.float32), 0, tb)
+    tout = tchunk(tst, torch.tensor(dt0), torch.tensor(t0, dtype=torch.float32), it0, tb)
 
     js, ts = state_to_numpy(state_from_numpy(jout[0])), state_to_numpy(tout[0])
     jo, to = np.argsort(js["id"]), np.argsort(ts["id"])
@@ -194,7 +258,7 @@ def test_one_chunk_matches(name):
         np.testing.assert_allclose(e_t, e_j, rtol=0, atol=1e-5 * np.abs(e_j).max())
     np.testing.assert_allclose(float(tout[1]), float(jout[1]), rtol=1e-5)
     np.testing.assert_allclose(float(tout[2]), float(jout[2]), rtol=1e-5)
-    assert tout[3] == int(jout[3]) == steps
+    assert tout[3] == int(jout[3]) == it0 + steps
     for k, v in bodies_to_numpy(tout[4]).items():
         want = np.asarray(getattr(jout[4], k))
         atol = 1e-4 * np.abs(want).max() if k in ("force", "torque") else 1e-5

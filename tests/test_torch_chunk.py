@@ -105,12 +105,20 @@ def test_compute_dt_matches(dambreak):
 
 def _body_specs(mod, specs):
     """The problem's feedback obstacle plus a floating and a prescribed body
-    sharing its particles' object number, to cover every branch."""
+    sharing its particles' object number, to cover every branch.  The port's
+    motion callback returns tensors on t's device (``body_velocity``), the
+    JAX package's a tuple."""
     (s,) = specs
+    lin, ang = (0.1, 0.0, -0.05), (0.0, 0.0, 0.7)
+    if mod is tbodies:
+        def motion(t):
+            return tbodies.body_velocity(t, lin, ang)
+    else:
+        def motion(t):
+            return lin, ang
     return (s,
             mod.BodySpec(object_idx=2, mass=3.0, inertia=(0.1, 0.2, 0.3), floating=True),
-            mod.BodySpec(object_idx=3, motion=lambda t: ((0.1, 0.0, -0.05),
-                                                         (0.0, 0.0, 0.7))))
+            mod.BodySpec(object_idx=3, motion=motion))
 
 
 def _body_state(dambreak):

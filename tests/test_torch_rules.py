@@ -81,12 +81,15 @@ def test_unported_configurations_raise():
     """make_sim_chunk names the missing slice instead of skipping it."""
     import dataclasses
 
-    from gpusph_tpu_torch.defs import FilterType, SPHFormulation
+    from gpusph_tpu_torch.defs import FilterType, SPHFormulation, TurbulenceModel
 
     p, grid, _ = _dambreak_small()
     fw = p.fw.finalize()
-    with pytest.raises(NotImplementedError, match="filters"):
-        make_sim_chunk(dataclasses.replace(fw, filters=((FilterType.MLS, 10),)), grid)
+    # the density filters are ported: MLS builds, SPS still raises
+    make_sim_chunk(dataclasses.replace(fw, filters=((FilterType.MLS, 10),)), grid)
+    with pytest.raises(NotImplementedError, match="SPS"):
+        make_sim_chunk(dataclasses.replace(
+            fw, visc=dataclasses.replace(fw.visc, turbmodel=TurbulenceModel.SPS)), grid)
     with pytest.raises(NotImplementedError, match="Grenier"):
         make_sim_chunk(dataclasses.replace(fw, sph_formulation=SPHFormulation.SPH_GRENIER),
                        grid)
@@ -98,7 +101,7 @@ def test_new_modules_fall_under_the_import_ban():
     """The output path's modules are globbed with the rest of the package."""
     names = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
     for mod in ("io/vtk.py", "io/writers.py", "io/hotfile.py", "ops/pair.py",
-                "ops/postprocess.py", "repacking.py"):
+                "ops/postprocess.py", "repacking.py", "ops/filters.py", "ops/visc.py"):
         assert f"gpusph_tpu_torch/{mod}" in names, mod
 
 
@@ -114,13 +117,11 @@ def test_catalog_slice_files_fall_under_the_import_ban(path):
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
 def test_unported_problems_name_their_slice(name):
     """The JAX catalog's problems that the port does not hold are not in its
-    registry; asking for one names what it waits for (prescribed body motion
-    for the traced-callback slice, DEM, ...)."""
+    registry; asking for one names what it waits for (DEM, SA boundaries,
+    ...)."""
     from gpusph_tpu_torch.problems.base import PROBLEM_REGISTRY
 
-    match = {"DEMExample": "DEM terrain", "DamBreakGate": "traced-callback slice",
-             "WaveTank": "traced-callback slice", "SolitaryWave": "traced-callback slice",
-             "SlidingWedge": "traced-callback slice"}.get(name, "not ported yet")
+    match = {"DEMExample": "DEM terrain"}.get(name, "not ported yet")
     with pytest.raises(NotImplementedError, match=match) as err:
         get_problem(name)
     assert NOT_PORTED[name] in str(err.value)
