@@ -43,7 +43,19 @@ Phases, one line each; any failure exits non-zero and prints no ``ok`` line:
    one chunk from inside its bodies' motion windows, each body particle
    where the callback's velocity integrated over the chunk puts it; one
    MLS pass and one effective-viscosity pass at full width on the card
-   against the CPU; the JAX goldens of DamBreakGate and WaveTank.
+   against the CPU; the JAX goldens of DamBreakGate and WaveTank;
+9. the general pair path (``ops/forces.py`` on ``neighbor_apply``): each
+   configuration of ``GENERAL`` (Seiche with SPS and its gravity callback,
+   RTInstability with Grenier, BiFluidPoiseuille with Hu & Adams,
+   Poiseuille with Espanol-Revenga, Bubble at twice its default dp) at its
+   default width, a warm-up chunk from the build and one timed chunk (CUDA
+   events), phase 4's checks and no forces-kernel launch; its particles,
+   pair slots per pass, ms per general forces pass and per Grenier / SPS
+   pass; Seiche's timed chunk inside the callback's window, the gravity of
+   every pass against the callback at t and t + dt/2; one general pass, its
+   Grenier and SPS passes card vs CPU at the reduced widths of
+   ``GENERAL_CPU``; the general path against the forces kernel on
+   DamBreak3D at dp 0.012; the JAX goldens of RTInstability and Bubble.
 
 Then one JSON line describing each kernel, and last the ``ok`` line.
 """
@@ -679,6 +691,306 @@ def slice_phase(dev, card):
     say(f"[8 golden] phase 8 took {time.perf_counter() - phase_t0:.1f} s (host clock)")
 
 
+# phase 9: the general pair path at default width, one warm-up and one timed
+# chunk each; "Poiseuille-er" is Poiseuille with Espanol-Revenga, and Bubble
+# also runs at twice its default dp (78,849 particles against 487,620)
+BUBBLE_DP = 0.128 * 0.025 / 1.3  # Bubble's default dp (h/R = 0.128)
+GENERAL = {"Seiche": {}, "RTInstability": {}, "BiFluidPoiseuille": {},
+           "Poiseuille-er": {"viscmodel": 2}, "Bubble-2dp": {"deltap": 2 * BUBBLE_DP},
+           "Bubble": {}}
+# Seiche starts inside its gravity callback's window (0.3 s, 3.0 s)
+GENERAL_T0 = {"Seiche": 0.35}
+# card vs CPU: one chunk on the card at a width whose passes the host CPU
+# takes in seconds, then each pass of its final state on both devices with
+# the same inputs, at phase 8's tolerances.  Grenier's density is held as the
+# physical density (rho/rho0 - 1 of an f32 density near 1000 resolves 6e-8,
+# as phase 8 holds MLS), and its forces pass on the CPU takes the card's
+# particle volume exp(J) V0 (as J = 0, V0 = the card's volume): Colagrossi's
+# volume-ratio term takes V_a/V_b - 1 in f32, about 1e-5 between hydrostatic
+# neighbours, so an ulp of either device's expf moves a pair's term by 1e-2
+# relative (on an H100: DrDt 7.13e-05 of 0.554 with each device's own
+# volume); that difference is printed, not held.  DrDt also keeps phase 3's
+# absolute floor ATOL_DRDT: where the continuity terms cancel, as in
+# BiFluidPoiseuille's parallel shear flow (max |DrDt| 6.5e-09 after one
+# chunk on an H100), the sum is rounding noise
+GENERAL_CPU = {"Seiche": {"deltap": 0.025}, "RTInstability": {"deltap": 0.02},
+               "BiFluidPoiseuille": {}, "Poiseuille-er": {"viscmodel": 2, "ppH": 16},
+               "Bubble-2dp": {"deltap": 4 * BUBBLE_DP}}
+# the gravity a pass used against the callback evaluated on the host in
+# float64 (f32 sine on either side)
+GRAVITY_ATOL = 1e-5
+# the goldens of tests/references that the JAX package meets with drift 0
+# (scripts/check_problem.py NAME --cpu --maxiter 100), at its options
+GENERAL_GOLDENS = {"RTInstability": dict(deltap=0.04), "Bubble": dict(deltap=0.05)}
+
+
+def general_problem(name, opts):
+    """The problem of a GENERAL key, built at ``opts``: (problem, framework,
+    grid, state)."""
+    from gpusph_tpu_torch.problems.base import get_problem
+
+    prob = get_problem(name.split("-")[0])(dict(opts))
+    grid, state = prob.build()
+    return prob, prob.fw.finalize(), grid, state
+
+
+def general_inputs(fw, grid, st):
+    """The sorted state, its tables and occupied cells, and the per-pass
+    inputs a chunk computes before the general pass (Grenier's sigma and
+    density, the SPS stress, the effective viscosity)."""
+    import torch
+
+    from gpusph_tpu_torch.defs import SPHFormulation, TurbulenceModel
+    from gpusph_tpu_torch.ops.grenier import grenier_density_sigma
+    from gpusph_tpu_torch.ops.neighbors import build_cells
+    from gpusph_tpu_torch.ops.visc import effective_viscosity, sps_stress
+
+    sts, aux = build_cells(grid, st)
+    cells = torch.nonzero(aux.cell_count[:grid.n_cells]).squeeze(1)
+    kw = {}
+    if fw.sph_formulation == SPHFormulation.SPH_GRENIER:
+        kw["sigma"], rho = grenier_density_sigma(fw, grid, sts, aux, cells=cells)
+        sts = sts.replace(rho=rho)
+    if fw.visc.turbmodel == TurbulenceModel.SPS:
+        kw["sps_tau"], _ = sps_stress(fw, grid, sts, aux, cells=cells)
+    if fw.visc.needs_effective_visc:
+        kw["effvisc"] = effective_viscosity(fw, grid, sts, aux, cells=cells)
+    return sts, aux, cells, kw
+
+
+def held(a, b, rtol, atol_frac, atol_floor=0.0):
+    """(ok, max abs diff, max |b|) of ``a`` against ``b`` at rtol + the
+    larger of atol_frac x max|b| and atol_floor (numpy arrays)."""
+    diff = np.abs(a - b)
+    scale = float(np.abs(b).max()) if b.size else 0.0
+    atol = max(atol_frac * scale, atol_floor)
+    ok = bool(np.isfinite(a).all()) and bool((diff <= atol + rtol * np.abs(b)).all())
+    return ok, float(diff.max()) if b.size else 0.0, scale
+
+
+def general_phase(dev, card, dam):
+    """Phase 9 (see the docstring); ``dam`` is phase 3's (framework, grid,
+    state) of DamBreak3D at dp 0.012."""
+    import dataclasses
+
+    import torch
+
+    from gpusph_tpu_torch.bodies import init_bodies_state
+    from gpusph_tpu_torch.integrator import make_sim_chunk
+    from gpusph_tpu_torch.ops import forces_kernel
+    from gpusph_tpu_torch.ops.block_plan import build_block_plan
+    from gpusph_tpu_torch.ops.eos import physical_density
+    from gpusph_tpu_torch.ops.forces import compute_forces
+    from gpusph_tpu_torch.ops.grenier import grenier_density_sigma, grenier_volume
+    from gpusph_tpu_torch.ops.visc import sps_stress
+    from gpusph_tpu_torch.state import fluid_num
+
+    phase_t0 = time.perf_counter()
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def start(prob, fw, grid, state0, name, record=None):
+        """The chunk function and its first arguments on the card."""
+        if record is not None:
+            cb = fw.gcallback
+
+            def recorded(t):
+                g = cb(t)
+                record.append((t.clone(), *(c.clone() for c in g)))
+                return g
+
+            fw = dataclasses.replace(fw, gcallback=recorded)
+        specs = prob.body_specs()
+        st0 = state0.to(dev)
+        dt0 = fw.sp.dt or 0.1 * fw.sp.slength / max(f.c0 for f in fw.pp.fluids)
+        args = (st0, torch.tensor(dt0, **f32), torch.tensor(GENERAL_T0.get(name, 0.0), **f32),
+                0, init_bodies_state(specs, st0))
+        return make_sim_chunk(fw, grid, bodies_specs=specs), args
+
+    for name, opts in GENERAL.items():
+        t0 = time.perf_counter()
+        prob, fw, grid, state0 = general_problem(name, opts)
+        build_s = time.perf_counter() - t0
+        record = [] if fw.gcallback is not None else None
+        chunk, args = start(prob, fw, grid, state0, name, record)
+        n0 = int(state0.count_active())
+        forces_kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = chunk(*args)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if record is not None:
+            record.clear()
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        begin.record()
+        out = chunk(*warm[:5])
+        end.record()
+        torch.cuda.synchronize()
+        chunk_ms = begin.elapsed_time(end)
+        launches = forces_kernel.launches
+        st, dt1 = out[0], float(out[1])
+        n1 = int(st.count_active())
+        finite = all(bool(torch.isfinite(t).all()) for t in (st.pos, st.vel, st.rho))
+
+        sts, aux, cells, kw = general_inputs(fw, grid, st)
+        K = fw.sp.max_parts_per_cell
+        slots = int(cells.shape[0]) * K * 27 * K
+        t_end = out[2]
+        pass_ms = cuda_ms(lambda: compute_forces(fw, grid, sts, aux, dt=out[1], t=t_end,
+                                                 cells=cells, **kw), 3, warmup=1)
+        extra_ms = {}
+        if "sigma" in kw:
+            extra_ms["grenier_density_sigma"] = cuda_ms(
+                lambda: grenier_density_sigma(fw, grid, sts, aux, cells=cells), 3, warmup=1)
+        if "sps_tau" in kw:
+            extra_ms["sps_stress"] = cuda_ms(
+                lambda: sps_stress(fw, grid, sts, aux, cells=cells), 3, warmup=1)
+        steps = fw.sp.buildneibsfreq
+        say(f"[9 general] {name}: {n0} particles (build {build_s:.3f} s, grid "
+            f"{'x'.join(map(str, grid.ncells))}, periodic {int(grid.periodic)}, K {K}); "
+            f"warm-up chunk {warm_s:.3f} s (host clock), timed chunk from t "
+            f"{float(warm[2]):.6g} {chunk_ms:.6g} ms (CUDA events) = "
+            f"{n0 * steps / chunk_ms * 1e3:.6g} particle-steps/s; forces-kernel launches "
+            f"{launches}; n_active {n0} -> {n1}; finite {finite}; dt {dt1:.6g}; "
+            f"{cells.shape[0]} occupied cells, {slots} pair slots per pass; general forces "
+            f"pass {pass_ms:.6g} ms ({pass_ms * 1e6 / slots:.4g} ns per slot) x "
+            f"{2 * steps} per chunk"
+            + "".join(f"; {k} {ms:.6g} ms ({ms * 1e6 / slots:.4g} ns per slot) x {2 * steps}"
+                      for k, ms in extra_ms.items()) + f" [{card}]")
+        if launches != 0:
+            fail(f"{name}: the forces kernel launched {launches} times on the general path")
+        if n1 != n0 or not finite or not dt1 > 1e-10:
+            fail(f"{name}: n_active {n0} -> {n1}, finite {finite}, dt {dt1}")
+
+        if record is not None:
+            gravity_check(name, fw, grid, warm, record, sts, aux, cells, kw, card)
+
+    # one general pass and its Grenier / SPS passes, card vs CPU
+    for name, opts in GENERAL_CPU.items():
+        prob, fw, grid, state0 = general_problem(name, opts)
+        chunk, args = start(prob, fw, grid, state0, name)
+        out = chunk(*args)
+        st = out[0]
+        sts, aux, cells, kw = general_inputs(fw, grid, st)
+        cpu_st, cpu_aux, cpu_cells, cpu_kw = general_inputs(fw, grid, st.to("cpu"))
+        if not torch.equal(sts.id.cpu(), cpu_st.id):
+            fail(f"{name}: the card and the CPU sort the particles differently")
+        act = sts.active.cpu().numpy()
+        rows = {}
+        for k, v in kw.items():  # the passes before the forces pass
+            rows[k] = (v.cpu().numpy()[act], cpu_kw[k].numpy()[act])
+        if "sigma" in kw:
+            rows["grenier density"] = (
+                physical_density(fw.pp, sts.rho, fluid_num(sts.info)).cpu().numpy()[act],
+                physical_density(fw.pp, cpu_st.rho, fluid_num(cpu_st.info)).numpy()[act])
+        # the forces pass on the CPU takes the card's inputs
+        same_st = cpu_st.replace(rho=sts.rho.cpu())
+        same_kw = {k: v.cpu() for k, v in kw.items()}
+        t_pass = out[2]
+        a = compute_forces(fw, grid, sts, aux, dt=out[1], t=t_pass, cells=cells, **kw)
+        own = ""
+        if "sigma" in kw:
+            b_own = compute_forces(fw, grid, same_st, cpu_aux, dt=out[1].cpu(),
+                                   t=t_pass.cpu(), cells=cpu_cells, **same_kw)
+            own_err = float((a.DrDt.cpu() - b_own.DrDt)[torch.from_numpy(act)].abs().max())
+            own = f"; DrDt with each device's own expf {own_err:.3g} (not held)"
+            extras = dict(same_st.extras)
+            extras["grenier_vol0"] = grenier_volume(sts).cpu()
+            extras["grenier_J"] = torch.zeros_like(extras["grenier_J"])
+            same_st = same_st.replace(extras=extras)
+        t0 = time.perf_counter()
+        b = compute_forces(fw, grid, same_st, cpu_aux, dt=out[1].cpu(), t=t_pass.cpu(),
+                           cells=cpu_cells, **same_kw)
+        cpu_s = time.perf_counter() - t0
+        rows["DrDt"] = (a.DrDt.cpu().numpy()[act], b.DrDt.numpy()[act])
+        rows["DvDt"] = (a.DvDt.cpu().numpy()[act], b.DvDt.numpy()[act])
+        report, ok = [], True
+        for k, (x, y) in rows.items():
+            good, err, scale = held(x, y, PASS_RTOL, PASS_ATOL_FRAC,
+                                    ATOL_DRDT if k == "DrDt" else 0.0)
+            ok &= good
+            report.append(f"{k} {err:.3g} of {scale:.3g}{'' if good else ' MISMATCH'}")
+        say(f"[9 card-cpu] {name} {opts} ({int(sts.count_active())} particles, after one "
+            f"chunk): card vs CPU max abs diff {', '.join(report)} (rtol {PASS_RTOL}, atol "
+            f"{PASS_ATOL_FRAC} x max, at least {ATOL_DRDT} on DrDt){own}; the CPU pass took "
+            f"{cpu_s:.3f} s [{card}]")
+        if not ok:
+            fail(f"{name}: the general path on the card disagrees with the CPU")
+
+    # the general path against the forces kernel on the same state
+    fw, grid, st = dam
+    sts, aux, cells, kw = general_inputs(fw, grid, st)
+    plan = build_block_plan(fw, grid, sts, aux)
+    want = forces_kernel.compute_forces_kernel(fw, grid, sts, plan)
+    got = compute_forces(fw, grid, sts, aux, cells=cells)
+    torch.cuda.synchronize()
+    act = sts.active.cpu().numpy()
+    dv_ok, dv_err, dv_max = held(got.DvDt.cpu().numpy()[act], want.DvDt.cpu().numpy()[act],
+                                 RTOL, 1e-4)
+    dr_w = want.DrDt.cpu().numpy()[act]
+    dr_diff = np.abs(got.DrDt.cpu().numpy()[act] - dr_w)
+    dr_err = float(dr_diff.max())
+    dr_ok = bool((dr_diff <= ATOL_DRDT + RTOL * np.abs(dr_w)).all())
+    path_ms = cuda_ms(lambda: compute_forces(fw, grid, sts, aux, cells=cells), 2, warmup=1)
+    K = fw.sp.max_parts_per_cell
+    say(f"[9 path] DamBreak3D dp 0.012 ({int(sts.count_active())} particles): general path vs "
+        f"forces kernel, DvDt max abs diff {dv_err:.3g} of {dv_max:.3g}, DrDt {dr_err:.3g} "
+        f"(rtol {RTOL}, atol 1e-4 x max|DvDt|, {ATOL_DRDT} on DrDt); general pass "
+        f"{path_ms:.6g} ms over {int(cells.shape[0]) * K * 27 * K} pair slots [{card}]")
+    if not (dv_ok and dr_ok):
+        fail("DamBreak3D: the general path disagrees with the forces kernel")
+
+    for name, opts in GENERAL_GOLDENS.items():
+        drift, limit, dt_ref, dt_now = golden_drift(name, opts, GOLDEN_ITERS)
+        say(f"[9 golden] {name} {opts}, {GOLDEN_ITERS} iterations: max drift pos "
+            f"{drift['pos']:.6g} (limit {limit:.6g}), vel {drift['vel']:.6g}, rho "
+            f"{drift['rho']:.6g}; dt_ref {dt_ref:.6g} dt_now {dt_now:.6g} [{card}]")
+        if not drift["pos"] <= limit:
+            fail(f"golden {name}: pos drift above 1e-3 x max|pos|")
+    say(f"[9 golden] phase 9 took {time.perf_counter() - phase_t0:.1f} s (host clock)")
+
+
+def gravity_check(name, fw, grid, start_args, record, sts, aux, cells, kw, card):
+    """The gravity of every pass of the timed chunk against the callback at
+    t_k and t_k + dt_k/2 (evaluated on the host in float64), and one pass at
+    the chunk's start with the callback against the same pass with that
+    gravity as a constant: bit-identical accelerations."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from gpusph_tpu_torch.ops.forces import compute_forces
+
+    times = np.array([float(r[0]) for r in record])
+    used = np.array([[float(c) for c in r[1:]] for r in record])
+    gx = np.where((times > 0.3) & (times < 3.0),
+                  2.0 * np.sin(9.8 * (times.astype(np.float64) - 0.3)), 0.0)
+    want = np.stack([gx, np.zeros_like(gx), np.full_like(gx, -9.81)], axis=1)
+    err = float(np.abs(used - want).max())
+    # two passes per step: t_k, then t_k + dt_k/2, and t_{k+1} = t_k + dt_k
+    t_pred, t_corr = times[0::2], times[1::2]
+    dts = np.diff(np.append(t_pred, np.nan))[:-1]
+    # (f32 times near 0.35 s resolve 3e-8 s)
+    halves_ok = np.allclose(t_corr[:-1] - t_pred[:-1], dts / 2, rtol=1e-3, atol=2e-7)
+    t_start = start_args[2]
+    const = dataclasses.replace(fw, gcallback=None, physparams=dataclasses.replace(
+        fw.pp, gravity=tuple(float(c) for c in fw.gcallback(t_start))))
+    a = compute_forces(fw, grid, sts, aux, t=t_start, cells=cells, **kw)
+    b = compute_forces(const, grid, sts, aux, cells=cells, **kw)
+    same = torch.equal(a.DvDt, b.DvDt)
+    say(f"[9 gravity] {name}: {len(record)} callback calls in the timed chunk at t "
+        f"{times.min():.6g} to {times.max():.6g}, g_x {used[:, 0].min():.6g} to "
+        f"{used[:, 0].max():.6g}; max |g - callback(t)| {err:.3g} (limit {GRAVITY_ATOL}); "
+        f"corrector passes at t_k + dt_k/2 {halves_ok}; pass with the callback at t "
+        f"{float(t_start):.6g} vs constant gravity "
+        f"{'bit-identical' if same else 'DIFFERENT'} [{card}]")
+    if not (len(record) == 2 * fw.sp.buildneibsfreq and err <= GRAVITY_ATOL and halves_ok
+            and same and math.isfinite(err) and np.abs(used[:, 0]).max() > 0):
+        fail(f"{name}: the passes did not use the gravity callback's value")
+
+
 def run_cli(argv):
     """``gpusph_tpu_torch.cli.main`` in-process; returns its standard output
     (also echoed, indented)."""
@@ -910,6 +1222,7 @@ def main() -> int:
     sim = Simulator(prob.fw, grid, bodies_specs=prob.body_specs(), device="cuda")
     st2 = sim.run(state0, maxiter=20)
     torch.cuda.synchronize()
+    dam_fw, dam_grid = sim.fw, grid  # phase 9 holds the general path to the kernel here
     ok, dam_err, rep = compare_kernel(sim.fw, grid, st2)
     say(f"[3 parity] DamBreak3D dp 0.012 after 2 chunks, "
         f"{int(st2.count_active())} active: {'ok' if ok else 'MISMATCH'} {json.dumps(rep)}")
@@ -1036,6 +1349,9 @@ def main() -> int:
 
     # --- 8. body motion, filters, effective viscosity ----------------------------
     slice_phase(dev, card)
+
+    # --- 9. the general pair path --------------------------------------------------
+    general_phase(dev, card, (dam_fw, dam_grid, st2))
 
     say(json.dumps({"kernels": [{
         "name": "forces",

@@ -193,18 +193,19 @@ def reduce_body_forces(
 def step_bodies(
     specs: Sequence[BodySpec],
     bodies: BodiesState,
-    gravity: Tuple[float, float, float],
+    gravity,
     t,
     dt,
 ) -> BodiesState:
     """MOVE_BODIES: prescribed kinematics or Newton-Euler integration with
     body-frame inertia (Euler's equations incl. the gyroscopic term).
-    Per-body rows are written into fresh copies in place."""
+    ``gravity`` is three numbers, or three 0-d tensors of a gravity
+    callback.  Per-body rows are written into fresh copies in place."""
     dev = bodies.cg.device
     linvel = bodies.linvel.clone()
     angvel = bodies.angvel.clone()
     quat = bodies.quat
-    g = torch.tensor(gravity, dtype=torch.float32, device=dev)
+    g = torch.stack([torch.as_tensor(c, dtype=torch.float32, device=dev) for c in gravity])
     for s in specs:
         i = s.object_idx
         if s.floating:

@@ -31,7 +31,7 @@ problems of ``problems/catalog.py`` (DamBreak3D, Poiseuille,
 PoiseuillePapanastasiou, StillWater, LockExchange, OpenChannel,
 BuoyancyTest, Spheric2, AccuracyTest, Objects, DynBoundsExample,
 ProblemExample, DamBreakGate, WaveTank, SolitaryWave, SlidingWedge,
-OffshorePile).  Not ported: multi-device runs
+OffshorePile, Seiche, RTInstability, Bubble, BiFluidPoiseuille).  Not ported: multi-device runs
 (``--ndev``), and ``--debug timing``, whose counterpart is
 ``chip_smoke.py`` [4 layers].
 """

@@ -6,11 +6,15 @@ and the GPUSPH manager loop, `src/GPUSPH.cc:747-759`).  A *chunk* rebuilds
 the neighbor structure once (NEIBS_LIST phase, `src/Integrator.cc:95-250`:
 cell sort + block plan) and then runs ``buildneibsfreq`` predictor/corrector
 steps in a Python loop.  A step starts with the density filters that are
-due at its global iteration (FILTER phase, `ops/filters.py`); each forces
-pass computes the effective viscosity first where the rheology needs it
-(CALC_VISC, `ops/visc.py`) and then goes through the forces kernel
-(`ops/forces_kernel.py`): the CUDA kernel on the card, its plain version on
-the CPU.  The host loop handles termination and the overflow and dt checks.
+due at its global iteration (FILTER phase, `ops/filters.py`).  Each forces
+pass first refreshes Grenier's sigma and density (COMPUTE_DENSITY,
+`ops/grenier.py`) and computes the SPS stress and the effective viscosity
+where the model needs them (CALC_VISC, `ops/visc.py`).  The forces engine
+follows the configuration: the forces kernel (`ops/forces_kernel.py`; the
+CUDA kernel on the card, its plain version on the CPU) where
+``kernel_supported`` holds, else the general pair path (`ops/forces.py`, on
+``neighbor_apply``), which also takes a time-dependent gravity.  The host
+loop handles termination and the overflow and dt checks.
 """
 from __future__ import annotations
 
@@ -31,10 +35,12 @@ from .defs import RheologyType, SimFlags, SPHFormulation, TurbulenceModel
 from .framework import SimFramework
 from .ops.block_plan import build_block_plan, plan_dims
 from .ops.filters import apply_filters
+from .ops.forces import compute_forces, gravity_vector
 from .ops.forces_kernel import compute_forces_kernel, kernel_supported
+from .ops.grenier import grenier_density_sigma
 from .ops.integrate import compute_dt, euler_step
 from .ops.neighbors import CellGrid, build_cells
-from .ops.visc import effective_viscosity
+from .ops.visc import effective_viscosity, sps_stress
 from .state import ParticleState
 
 
@@ -70,26 +76,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _unported(fw: SimFramework, grid: CellGrid) -> Optional[str]:
-    """The missing slice a configuration needs, or None."""
-    if fw.sph_formulation == SPHFormulation.SPH_GRENIER:
-        return "Grenier's formulation"
+def _unported(fw: SimFramework) -> Optional[str]:
+    """The missing slice a configuration needs, or None (the options that
+    need SA boundaries are named before SA itself)."""
     if fw.visc.rheologytype == RheologyType.GRANULAR:
         return "granular rheology (Jacobi effective pressure)"
-    if fw.sa_boundary:
-        return "SA boundaries"
-    if fw.visc.turbmodel == TurbulenceModel.SPS:
-        return "SPS (with the general pair path)"
-    if fw.gcallback is not None:
-        return "variable gravity (gcallback, with the general pair path)"
+    if fw.visc.turbmodel == TurbulenceModel.KEPSILON:
+        return "the k-epsilon model"
     if fw.flags & SimFlags.ENABLE_DENSITY_SUM:
         return "density summation"
     if fw.io is not None:
         return "open boundaries"
+    if fw.sa_boundary:
+        return "SA boundaries"
     if fw.dem is not None:
         return "DEM terrain (ops/dem.py, with DEMExample)"
-    if not kernel_supported(fw, grid):
-        return "the general pair path (configuration outside kernel_supported)"
     return None
 
 
@@ -101,43 +102,62 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
     bodies, stats)`` advancing ``buildneibsfreq`` steps after one neighbor
     rebuild.  ``dt`` and ``t`` are f32 0-d tensors on the state's device,
     ``iters`` the global iteration as an int (from a hotfile on resume): the
-    filters' cadence follows it.  Raises NotImplementedError for a
-    configuration whose slice is not ported.
+    filters' cadence follows it.  The forces engine is the kernel where
+    ``kernel_supported`` holds, the general pair path otherwise.  Raises
+    NotImplementedError for a configuration whose slice is not ported.
     """
-    missing = _unported(fw, grid)
+    missing = _unported(fw)
     if missing is not None:
         raise NotImplementedError(f"not ported yet: {missing}")
     sp = fw.sp
     nsteps = sp.buildneibsfreq
     adaptive = bool(fw.flags & SimFlags.ENABLE_DTADAPT)
     specs = tuple(bodies_specs or ())
-    gravity = fw.pp.gravity
+    use_kernel = kernel_supported(fw, grid)
+    grenier = fw.sph_formulation == SPHFormulation.SPH_GRENIER
+    needs_sps = fw.visc.turbmodel == TurbulenceModel.SPS
     needs_effvisc = fw.visc.needs_effective_visc
 
-    def forces(state, plan, aux, cells):
+    def forces(state, plan, aux, cells, dt, t):
+        """One forces pass at time t; returns it and the state, whose
+        density Grenier's COMPUTE_DENSITY refreshed."""
+        sigma = sps_tau = effvisc = None
+        if grenier:
+            # densityGrenierDevice before every forces pass (JAX
+            # integrator.py:124-130)
+            sigma, rho = grenier_density_sigma(fw, grid, state, aux, cells=cells)
+            state = state.replace(rho=rho)
         # CALC_VISC before each forces pass (JAX integrator.py:95-106)
-        effvisc = (effective_viscosity(fw, grid, state, aux, cells=cells)
-                   if needs_effvisc else None)
-        return compute_forces_kernel(fw, grid, state, plan, effvisc)
+        if needs_sps:
+            sps_tau, _ = sps_stress(fw, grid, state, aux, cells=cells)
+        if needs_effvisc:
+            effvisc = effective_viscosity(fw, grid, state, aux, cells=cells)
+        if use_kernel:
+            return compute_forces_kernel(fw, grid, state, plan, effvisc), state
+        return compute_forces(fw, grid, state, aux, dt=dt, sps_tau=sps_tau,
+                              effvisc=effvisc, sigma=sigma, t=t, cells=cells), state
 
     def pc_step(state, dt, t, bodies, plan, aux, cells, it):
         # FILTER: the density filters due at global iteration it
         state = apply_filters(fw, grid, state, aux, it, cells=cells)
 
         # PREDICTOR: forces at n, integrate to n* with dt/2
-        f1 = forces(state, plan, aux, cells)
+        f1, state = forces(state, plan, aux, cells, dt, t)
         half = euler_step(fw, state, f1, dt * 0.5, step=1, grid=grid)
         if specs:
             b1 = reduce_body_forces(specs, state, f1.DvDt, bodies)
-            b_half = step_bodies(specs, b1, gravity, t, dt * 0.5)
+            # the gravity callback at t, else the constant (JAX
+            # integrator.py:175-176)
+            b_half = step_bodies(specs, b1, gravity_vector(fw, t), t, dt * 0.5)
             half = apply_body_motion(specs, half, b_half, dt * 0.5)
 
         # CORRECTOR: forces at n*, integrate n -> n+1 with dt
-        f2 = forces(half, plan, aux, cells)
+        f2, half = forces(half, plan, aux, cells, dt, t + dt * 0.5)
         new_state = euler_step(fw, state, f2, dt, step=2, full_dt=dt, grid=grid)
         if specs:
             b2 = reduce_body_forces(specs, half, f2.DvDt, bodies)
-            bodies = step_bodies(specs, b2, gravity, t + dt * 0.5, dt)
+            bodies = step_bodies(specs, b2, gravity_vector(fw, t + dt * 0.5), t + dt * 0.5,
+                                 dt)
             new_state = apply_body_motion(specs, new_state, bodies, dt)
 
         new_dt = compute_dt(fw, f2) if adaptive else dt
@@ -145,9 +165,10 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
 
     def chunk(state: ParticleState, dt, t, iters: int, bodies: BodiesState):
         state, aux = build_cells(grid, state)
-        plan = build_block_plan(fw, grid, state, aux)
+        # the block plan serves the kernel path only
+        plan = build_block_plan(fw, grid, state, aux) if use_kernel else None
         cells = None
-        if fw.filters or needs_effvisc:
+        if not use_kernel or fw.filters or needs_effvisc:
             # the occupied cells for the neighbor passes, found once per
             # chunk (waits for the device)
             cells = torch.nonzero(aux.cell_count[:grid.n_cells]).squeeze(1)
@@ -161,7 +182,7 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
             dt=dt,
             max_accel=f2.max_accel,
             max_sspeed=f2.max_sspeed,
-            max_run=plan.max_run,
+            max_run=plan.max_run if use_kernel else torch.zeros_like(aux.max_occupancy),
         )
         return state, dt, t, iters + nsteps, bodies, stats
 

@@ -56,6 +56,14 @@ def pressure(pp: PhysParams, rho_tilde, fluid_num):
     return b * (powed - 1.0)
 
 
+def density_from_pressure(pp: PhysParams, p, fluid_num):
+    """Inverse EOS: relative density from pressure (reference
+    `phys_core.cu:117-121`)."""
+    b = _per_fluid(pp, fluid_num, [f.bcoeff for f in pp.fluids])
+    gamma = _per_fluid(pp, fluid_num, [f.gamma for f in pp.fluids])
+    return torch.pow(p / b + 1.0, 1.0 / gamma) - 1.0
+
+
 def sound_speed(pp: PhysParams, rho_tilde, fluid_num):
     """c(rho) = c0 (rho/rho0)^((gamma-1)/2) (reference `phys_core.cu:136-142`)."""
     c0 = _per_fluid(pp, fluid_num, [f.c0 for f in pp.fluids])
@@ -89,6 +97,7 @@ def hydrostatic_density(pp: PhysParams, depth: torch.Tensor, fluid_num: int):
 
 __all__ = [
     "pressure",
+    "density_from_pressure",
     "sound_speed",
     "physical_density",
     "numerical_density",

@@ -9,9 +9,10 @@ Counterpart of the JAX package's ``ops/integrate.py`` (``eulerDevice``,
 * corrector (step 2): from state n with forces(n*), dt_eff = dt,
   ``velc = vel(n) + forces(n*) * dt/2`` — produces state n+1
 
-Fluid particles integrate pos/vel/rho; boundary particles are static except
-that DYN boundaries integrate density; moving-body particles are moved by
-the bodies subsystem afterwards.
+Fluid particles integrate pos/vel/rho (Grenier's formulation: the
+log-volume J instead of rho); boundary particles are static except that DYN
+boundaries integrate density; moving-body particles are moved by the bodies
+subsystem afterwards.
 """
 from __future__ import annotations
 
@@ -50,8 +51,6 @@ def euler_step(
     grid=None,
 ) -> ParticleState:
     """One Euler update producing state n* (step=1) or n+1 (step=2)."""
-    if fw.sph_formulation == SPHFormulation.SPH_GRENIER:
-        raise NotImplementedError("Grenier's formulation is not ported yet")
     if fw.visc.turbmodel == TurbulenceModel.KEPSILON:
         raise NotImplementedError("the k-epsilon model is not ported yet")
     ptype = part_type(state_n.info)
@@ -74,9 +73,17 @@ def euler_step(
     rho_mask = is_fluid
     if fw.boundarytype in (BoundaryType.DYN_BOUNDARY, BoundaryType.SA_BOUNDARY):
         rho_mask = rho_mask | is_bound
-    new_rho = torch.where(rho_mask, state_n.rho + forces.DrDt * dt_eff, state_n.rho)
-
     extras = dict(state_n.extras)
+    if fw.sph_formulation == SPHFormulation.SPH_GRENIER:
+        # Grenier: forces.DrDt is DJ/Dt; euler evolves the log-volume J
+        # (euler_kernel.def continuity_integration GRENIER + write_volume).
+        # The density itself is refreshed by the COMPUTE_DENSITY pass before
+        # each forces pass.
+        J = state_n.extras["grenier_J"]
+        extras["grenier_J"] = torch.where(rho_mask, J + forces.DrDt * dt_eff, J)
+        new_rho = state_n.rho
+    else:
+        new_rho = torch.where(rho_mask, state_n.rho + forces.DrDt * dt_eff, state_n.rho)
     # internal energy integration (euler_kernel.def:182-196)
     if (fw.flags & SimFlags.ENABLE_INTERNAL_ENERGY) and "energy" in extras:
         extras["energy"] = torch.where(

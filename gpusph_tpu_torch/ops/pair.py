@@ -12,9 +12,11 @@ physics callback computes its pairwise terms with plain tensor math; the
 chunks run one after another, so memory stays bounded.  Every field is a
 scalar component (``pos_x``, ``pos_y``, ``pos_z``), as in the JAX package.
 
-The write-time post-process passes and the repacking forces use it.  The
-forces pass of the main path does not: it runs the hand-written kernel
-(`ops/forces_kernel.py`).
+The general forces pass (`ops/forces.py`, for configurations outside the
+forces kernel's), Grenier's density pass, the filters, the viscosity
+engine, the write-time post-process passes and the repacking forces use it.
+The forces pass of the kernel configurations does not: it runs the
+hand-written kernel (`ops/forces_kernel.py`).
 """
 from __future__ import annotations
 
@@ -53,6 +55,9 @@ class PairGeometry:
         self.r = r
         self.mask = mask
 
+    def dot_rel(self, x, y, z):
+        """Dot product of a per-pair vector with the relative position."""
+        return x * self.relx + y * self.rely + z * self.relz
 
 
 def neighbor_apply(

@@ -89,8 +89,7 @@ def shear_rate_norm2(tau: torch.Tensor) -> torch.Tensor:
 def sps_stress(fw: SimFramework, grid: CellGrid, state: ParticleState,
                aux: CellAux, *, cells: Optional[torch.Tensor] = None):
     """SPS tau [N,6] (stored over rho, as the reference does) and the
-    turbulent viscosity nu [N].  No chunk runs it yet: SPS needs the
-    general pair path."""
+    turbulent viscosity nu [N]; the general forces pass takes tau."""
     pp = fw.pp
     tau = shear_rate_tensor(fw, grid, state, aux, cells=cells)
     SijSij_bytwo = shear_rate_norm2(tau)

@@ -13,9 +13,11 @@ moves it to its device.
 dispatcher (`io/writers.py`) produces, ``add_postprocess`` a post-process
 pass; ``add_plane`` declares a geometric plane boundary (`ops/planes.py`);
 ``set_body_motion`` gives a moving body its prescribed kinematics
-(``bodies.body_velocity``).  Not ported yet: STL, HDF5 and XYZ geometry, SA
-meshes, sediment and per-density masses and open boundaries;
-``set_gravity_callback`` is taken, but ``make_sim_chunk`` raises for it.
+(``bodies.body_velocity``), ``set_gravity_callback`` a time-dependent
+gravity; ``mass_by_density`` gives each particle of a geometry the mass of
+its initial density (the two-fluid problems), and a Grenier build carries
+the reference volume and log-volume extras.  Not ported yet: STL, HDF5 and
+XYZ geometry, SA meshes, sediment and open boundaries.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..defs import ParticleType, PostProcessType, SimFlags, WriterType
+from ..defs import ParticleType, PostProcessType, SimFlags, SPHFormulation, WriterType
 from ..framework import SimFramework, setup_framework
 from ..geometry import primitives as geo
 from ..ops import eos
@@ -40,6 +42,7 @@ from ..state import (
     FG_MOVING_BOUNDARY,
     ParticleState,
     empty_state,
+    fluid_num,
     make_info,
 )
 
@@ -79,6 +82,10 @@ class Geometry:
     density: Optional[float] = None
     velocity: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     feedback: bool = False  # enableFeedback: accumulate forces on this body
+    # setParticleMassByDensity analogue: m = dp^3 * physical_density(rho_init)
+    # per particle (reference ProblemAPI_1.cc setParticleMassByDensity +
+    # RTInstability.cu:207)
+    mass_by_density: bool = False
     # rigid-body overrides (reference Object::SetMass/SetInertia): total
     # body mass and body-frame diagonal inertia; default = estimated from
     # the particle cloud
@@ -206,10 +213,11 @@ class Problem:
         self._update_pp(artvisccoeff=alpha)
 
     def set_gravity_callback(self, fn):
-        """Variable gravity ``t -> (gx, gy, gz)`` (reference
-        ``ProblemCore::g_callback``, used by Seiche).  The forces kernel takes
-        gravity as a constant, so ``make_sim_chunk`` raises for it until the
-        general pair path is ported."""
+        """Variable gravity ``t -> (gx, gy, gz)``, three 0-d f32 tensors on
+        the device of the 0-d f32 time ``t`` (reference
+        ``ProblemCore::g_callback``, used by Seiche), evaluated for every
+        forces pass and body step.  The forces kernel takes gravity as a
+        constant: such a problem runs on the general pair path."""
         self.fw = dataclasses.replace(self.fw, gcallback=fn)
 
     def _update_fluid(self, fluid_idx: int, **kw):
@@ -491,7 +499,11 @@ class Problem:
             pos_list.append(g.points)
             vel_list.append(np.broadcast_to(np.asarray(g.velocity, np.float64), (n, 3)))
             rho_list.append(rho_t)
-            mass_list.append(np.full(n, mass))
+            if g.mass_by_density:
+                # m = dp^3 * physical_density(rho_init) per particle
+                mass_list.append(dp**3 * (np.asarray(rho_t) + 1.0) * rho0)
+            else:
+                mass_list.append(np.full(n, mass))
             info_list.append(np.full(n, make_info(ptype, flags, fluid_or_obj), np.int32))
 
         for p in self.testpoints:
@@ -527,6 +539,14 @@ class Problem:
         state.rho[:n_total] = torch.as_tensor(np.concatenate(rho_list), dtype=f32)
         state.mass[:n_total] = torch.as_tensor(np.concatenate(mass_list), dtype=f32)
         state.info[:n_total] = torch.as_tensor(np.concatenate(info_list))
+        if self.fw.sph_formulation == SPHFormulation.SPH_GRENIER:
+            # Grenier volume buffer (BUFFER_VOLUME, euler_kernel.def
+            # write_volume): reference volume V0 = m/rho0(fluid), log-volume
+            # J = 0 at t=0; actual volume = exp(J)*V0
+            rho0 = eos._per_fluid(self.fw.pp, fluid_num(state.info),
+                                  [f.rho0 for f in self.fw.pp.fluids])
+            state.extras["grenier_vol0"] = state.mass / rho0
+            state.extras["grenier_J"] = torch.zeros((capacity,), dtype=torch.float32)
         # problem-specific particle initialization hook (the reference's
         # ProblemCore::initializeParticles, ProblemCore.h:597-609)
         return grid, self.initialize_particles(grid, state)

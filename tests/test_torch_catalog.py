@@ -1,7 +1,10 @@
-"""Port vs JAX package on the catalog problems that run on the forces kernel:
-the problem builds, one chunk of eight configurations (with the prescribed
-body motion, the MLS filter and the effective viscosity among them), the
-plane forces, Poiseuille's steady start and SlidingWedge's scene.
+"""Port vs JAX package on the catalog problems: the problem builds, one
+chunk of fourteen configurations (with the prescribed body motion, the MLS
+filter and the effective viscosity among them on the forces kernel, and
+SPS with a gravity callback, Grenier, Hu & Adams, Espanol-Revenga and a
+floating body under a gravity callback on the general pair path), the plane
+forces, Poiseuille's steady start, SlidingWedge's scene and the gravity the
+body steps take from a callback.
 
 Every scene is cut to a few thousand particles; inputs reach both packages
 as the same numpy arrays (``convert.py``).
@@ -50,7 +53,19 @@ CASES = {
     "OffshorePile": dict(deltap=0.15),
     "PoiseuillePapanastasiou": dict(ppH=8),
     "DamBreak3D-mls": dict(deltap=0.06, **{"density-diffusion": 0}),
+    # the general pair path: SPS and a gravity callback, Grenier, Hu & Adams,
+    # two fluids, Espanol-Revenga (at the widths of scripts/check_problem.py)
+    "Seiche": dict(deltap=0.05),
+    "RTInstability": dict(deltap=0.04),
+    "RTInstability-ha": dict(deltap=0.04, formulation="ha"),
+    "Bubble": dict(deltap=0.05),
+    "Bubble-f2": dict(deltap=0.05, formulation="f2"),  # on the forces kernel
+    "BiFluidPoiseuille": dict(deltap=0.1),
+    "Poiseuille-er": dict(ppH=8, viscmodel=2),
 }
+# the cases that run on the general pair path
+GENERAL_PATH = {"Seiche", "RTInstability", "RTInstability-ha", "Bubble",
+                "BiFluidPoiseuille", "Poiseuille-er", "BuoyancyTest-gcallback"}
 RTOL = 1e-6  # same f32 formulas; libm may move an ulp
 
 
@@ -79,10 +94,21 @@ def _sliding_wedge_as_port(jp, tp):
     jp.planes = [JPlane(p.point, p.normal) for p in tp.planes]
 
 
-def _build(name, opts):
-    name = name.split("-")[0]  # "DamBreak3D-mls": a configuration of DamBreak3D
+def _seiche_gravity(t, xp):
+    """Seiche's gravity callback with the array module ``xp`` (jnp or torch)."""
+    on = (t > 0.3) & (t < 3.0)
+    gx = xp.where(on, 2.0 * xp.sin(9.8 * (t - 0.3)), 0.0)
+    return gx, xp.zeros_like(gx), xp.full_like(gx, -9.81)
+
+
+def _build(case, opts):
+    name = case.split("-")[0]  # "DamBreak3D-mls": a configuration of DamBreak3D
     jp = jget_problem(name)(dict(opts))
     tp = get_problem(name)(dict(opts))
+    if case.endswith("-gcallback"):
+        # a floating body under Seiche's lateral gravity
+        jp.set_gravity_callback(lambda t: _seiche_gravity(t, jnp))
+        tp.set_gravity_callback(lambda t: _seiche_gravity(t, torch))
     if name == "Objects":
         _erase_objects_overlap(jp)
     if name == "SlidingWedge":
@@ -97,7 +123,7 @@ def test_problem_build_matches(name):
     jp, jgrid, jst, tp, tgrid, tst = _build(name, CASES[name])
     for f in ("origin", "ncells", "cell_size", "periodic", "order"):
         assert getattr(tgrid, f) == getattr(jgrid, f), f
-    assert kernel_supported(tp.fw.finalize(), tgrid)
+    assert kernel_supported(tp.fw.finalize(), tgrid) == (name not in GENERAL_PATH)
     got = state_to_numpy(tst)
     for k in ("pos", "vel", "mass", "info", "id"):
         np.testing.assert_array_equal(got[k], np.asarray(getattr(jst, k)), err_msg=k)
@@ -216,6 +242,17 @@ CHUNK_CASES = {
     "DamBreak3D-mls": (dict(deltap=0.06, **{"density-diffusion": 0}), 10, 0.0, 5),
     # the effective viscosity before each forces pass, on a sheared start
     "PoiseuillePapanastasiou": (dict(ppH=8, **{"steady-init": True}), 10, 0.0, 0),
+    # the general pair path: each pass evaluates K x 27K slots per occupied
+    # cell, so these chunks are cut to a few steps.  Seiche from t = 0.35,
+    # inside its callback's window, and from iteration 18, so that its MLS
+    # filter (every 20) runs at the second step
+    "Seiche": (dict(deltap=0.05), 2, 0.35, 18),
+    "RTInstability": (dict(deltap=0.04), 2, 0.0, 0),  # Grenier, two fluids
+    "Bubble": (dict(deltap=0.05), 4, 0.0, 0),  # Grenier, air and water
+    "BiFluidPoiseuille": (dict(deltap=0.1), 10, 0.0, 0),  # Hu & Adams, periodic X/Y
+    "Poiseuille-er": (dict(ppH=8, viscmodel=2, **{"steady-init": True}), 2, 0.0, 0),
+    # a floating body under a gravity callback: the body steps take gravity_at(t)
+    "BuoyancyTest-gcallback": (dict(ppH=8), 2, 0.35, 0),
 }
 
 
@@ -256,6 +293,11 @@ def test_one_chunk_matches(name):
         e_t, e_j = ts["extras"]["energy"][to], js["extras"]["energy"][jo]
         assert np.abs(e_j).max() > 0
         np.testing.assert_allclose(e_t, e_j, rtol=0, atol=1e-5 * np.abs(e_j).max())
+    if "grenier_J" in js["extras"]:
+        # Grenier's log-volume, integrated like the density
+        J_t, J_j = ts["extras"]["grenier_J"][to], js["extras"]["grenier_J"][jo]
+        assert np.abs(J_j).max() > 0
+        np.testing.assert_allclose(J_t, J_j, rtol=0, atol=1e-6)
     np.testing.assert_allclose(float(tout[1]), float(jout[1]), rtol=1e-5)
     np.testing.assert_allclose(float(tout[2]), float(jout[2]), rtol=1e-5)
     assert tout[3] == int(jout[3]) == it0 + steps
@@ -337,3 +379,33 @@ def test_geometry_api_matches():
         np.testing.assert_array_equal(got[k], np.asarray(getattr(jst, k)), err_msg=k)
     assert [(b.object_idx, b.mass, b.inertia) for b in tp.body_specs()] == \
         [(b.object_idx, b.mass, b.inertia) for b in jp.body_specs()]
+
+
+def test_bodies_step_with_the_callback_gravity(monkeypatch):
+    """Each body step of a chunk takes the gravity callback's value at its
+    time, t for the predictor and t + dt/2 for the corrector (the JAX
+    integrator's ``gravity_at``), not the constant ``pp.gravity``."""
+    from gpusph_tpu_torch import integrator
+
+    tp = get_problem("BuoyancyTest")({"ppH": 8})
+    tp.set_gravity_callback(lambda t: _seiche_gravity(t, torch))
+    tgrid, tst = tp.build()
+    fw = dataclasses.replace(tp.fw, simparams=dataclasses.replace(
+        tp.fw.sp, buildneibsfreq=1)).finalize()
+    seen = []
+
+    def step_bodies(specs, bodies, gravity, t, dt):
+        seen.append((float(t), [float(g) for g in gravity]))
+        return tbodies.step_bodies(specs, bodies, gravity, t, dt)
+
+    monkeypatch.setattr(integrator, "step_bodies", step_bodies)
+    specs = tp.body_specs()
+    t0, dt = 0.35, 1e-4
+    make_sim_chunk(fw, tgrid, bodies_specs=specs)(
+        tst, torch.tensor(dt), torch.tensor(t0), 0, tbodies.init_bodies_state(specs, tst))
+    times = [np.float32(t0), np.float32(t0) + np.float32(dt) * np.float32(0.5)]
+    assert [t for t, _ in seen] == pytest.approx([float(t) for t in times], abs=0)
+    for (t, g), ti in zip(seen, times):
+        want = [float(c) for c in _seiche_gravity(torch.tensor(ti), torch)]
+        assert g == want
+        assert g[0] != 0.0 and tuple(g) != tuple(fw.pp.gravity)

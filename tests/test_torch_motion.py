@@ -65,21 +65,21 @@ def test_motion_callbacks_match():
 
 
 def test_chunk_refuses_the_next_slices():
+    """The granular rheology waits for the Jacobi solver; a gravity callback
+    and SPS build on the general pair path, and so does Seiche."""
     p = get_problem("Poiseuille")({"ppH": 4})
     grid, _ = p.build()
     fw = p.fw.finalize()
-    for change, words in (
-            (dict(gcallback=lambda t: (0.0, 0.0, -9.81)), "variable gravity"),
-            (dict(visc=dataclasses.replace(fw.visc, turbmodel=TurbulenceModel.SPS)), "SPS"),
-            (dict(visc=dataclasses.replace(fw.visc, rheologytype=RheologyType.GRANULAR)),
-             "granular")):
-        with pytest.raises(NotImplementedError, match=words):
-            make_sim_chunk(dataclasses.replace(fw, **change), grid)
+    with pytest.raises(NotImplementedError, match="granular"):
+        make_sim_chunk(dataclasses.replace(fw, visc=dataclasses.replace(
+            fw.visc, rheologytype=RheologyType.GRANULAR)), grid)
+    for change in (dict(gcallback=lambda t: (0.0, 0.0, -9.81)),
+                   dict(visc=dataclasses.replace(fw.visc, turbmodel=TurbulenceModel.SPS))):
+        make_sim_chunk(dataclasses.replace(fw, **change), grid)
     for name, opts in (("PoiseuillePapanastasiou", {"ppH": 4}),
                        ("DamBreak3D", {"deltap": 0.1, "density-diffusion": 0}),
                        ("OffshorePile", {"deltap": 0.25}),
-                       ("WaveTank", {"deltap": 0.1})):
+                       ("WaveTank", {"deltap": 0.1}),
+                       ("Seiche", {"deltap": 0.1})):
         q = get_problem(name)(dict(opts))
         make_sim_chunk(q.fw.finalize(), q.build()[0], bodies_specs=q.body_specs())
-    with pytest.raises(NotImplementedError, match="general pair path, SPS and variable gravity"):
-        get_problem("Seiche")

@@ -78,30 +78,44 @@ def test_simulator_defaults_to_cuda():
 
 
 def test_unported_configurations_raise():
-    """make_sim_chunk names the missing slice instead of skipping it."""
+    """make_sim_chunk names the missing slice instead of skipping it; the
+    filters, SPS, Grenier and a gravity callback build (the last three on
+    the general pair path)."""
     import dataclasses
 
-    from gpusph_tpu_torch.defs import FilterType, SPHFormulation, TurbulenceModel
+    from gpusph_tpu_torch.defs import (BoundaryType, FilterType, RheologyType, SimFlags,
+                                       SPHFormulation, TurbulenceModel)
 
     p, grid, _ = _dambreak_small()
     fw = p.fw.finalize()
-    # the density filters are ported: MLS builds, SPS still raises
     make_sim_chunk(dataclasses.replace(fw, filters=((FilterType.MLS, 10),)), grid)
-    with pytest.raises(NotImplementedError, match="SPS"):
-        make_sim_chunk(dataclasses.replace(
-            fw, visc=dataclasses.replace(fw.visc, turbmodel=TurbulenceModel.SPS)), grid)
-    with pytest.raises(NotImplementedError, match="Grenier"):
-        make_sim_chunk(dataclasses.replace(fw, sph_formulation=SPHFormulation.SPH_GRENIER),
-                       grid)
-    with pytest.raises(NotImplementedError, match="DEM terrain"):
-        make_sim_chunk(dataclasses.replace(fw, dem=((0.0,),)), grid)
+    make_sim_chunk(dataclasses.replace(
+        fw, visc=dataclasses.replace(fw.visc, turbmodel=TurbulenceModel.SPS)), grid)
+    make_sim_chunk(dataclasses.replace(fw, sph_formulation=SPHFormulation.SPH_GRENIER),
+                   grid)
+    make_sim_chunk(dataclasses.replace(fw, gcallback=lambda t: (t, t, t)), grid)
+    sa = dataclasses.replace(fw, boundarytype=BoundaryType.SA_BOUNDARY)
+    for bad, match in (
+            (dataclasses.replace(fw, visc=dataclasses.replace(
+                fw.visc, rheologytype=RheologyType.GRANULAR,
+                turbmodel=TurbulenceModel.LAMINAR_FLOW)), "granular"),
+            (dataclasses.replace(sa, visc=dataclasses.replace(
+                fw.visc, turbmodel=TurbulenceModel.KEPSILON)), "k-epsilon"),
+            (dataclasses.replace(sa, flags=fw.flags | SimFlags.ENABLE_DENSITY_SUM),
+             "density summation"),
+            (dataclasses.replace(fw, io=((0.0,),)), "open boundaries"),
+            (sa, "SA boundaries"),
+            (dataclasses.replace(fw, dem=((0.0,),)), "DEM terrain")):
+        with pytest.raises(NotImplementedError, match=match):
+            make_sim_chunk(bad, grid)
 
 
 def test_new_modules_fall_under_the_import_ban():
     """The output path's modules are globbed with the rest of the package."""
     names = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
     for mod in ("io/vtk.py", "io/writers.py", "io/hotfile.py", "ops/pair.py",
-                "ops/postprocess.py", "repacking.py", "ops/filters.py", "ops/visc.py"):
+                "ops/postprocess.py", "repacking.py", "ops/filters.py", "ops/visc.py",
+                "ops/forces.py", "ops/grenier.py"):
         assert f"gpusph_tpu_torch/{mod}" in names, mod
 
 
