@@ -55,7 +55,25 @@ Phases, one line each; any failure exits non-zero and prints no ``ok`` line:
    every pass against the callback at t and t + dt/2; one general pass, its
    Grenier and SPS passes card vs CPU at the reduced widths of
    ``GENERAL_CPU``; the general path against the forces kernel on
-   DamBreak3D at dp 0.012; the JAX goldens of RTInstability and Bubble.
+   DamBreak3D at dp 0.012; the JAX goldens of RTInstability and Bubble;
+10. the granular Jacobi solver, the DEM terrain, OilJet and Generic:
+   LithostaticLJ and LithostaticDYN at their default dp (a warm-up and a
+   timed chunk, phase 4's checks, no forces-kernel launch, the Jacobi
+   iterations of every solve and ms per iteration; the effective pressure
+   after the cold solve linear in depth, its slope printed beside
+   (rho_sed - rho_w) g, and the cold solve's slope at dp 0.1 within 1% of
+   the JAX package's: neither package comes within 15% of (rho_sed -
+   rho_w) g, ROADMAP section 3); DamBreakMobileBed at its
+   default width, one forces phase part by part (surface detection, the
+   Jacobi solve and its iterations, CALC_VISC, the general pass), and one
+   chunk from its build at twice its dp; DEMExample at its default dp for
+   50 iterations (two forces-kernel launches per step, no fluid particle
+   below the terrain, kernel vs plain version on the final state); OilJet
+   (the piston's chunk against its integrated callback, then a timed chunk
+   on the general path); Generic, an INI file with an STL obstacle written
+   into a temporary directory, through the CLI on the card; card vs CPU at
+   reduced widths: the surface flags exact, a fixed-count Jacobi solve,
+   the DEM force.
 
 Then one JSON line describing each kernel, and last the ``ok`` line.
 """
@@ -451,7 +469,7 @@ SLICE_ITERS = 50
 # chunk on the host (a midpoint sum of the steps against the integral, and
 # f32 positions), puts it
 MOTION_T0 = {"DamBreakGate": 0.15, "WaveTank": 0.5, "SolitaryWave": 0.5, "SlidingWedge": 1.0,
-             "OffshorePile": 0.5}
+             "OffshorePile": 0.5, "OilJet": 0.05}
 MOTION_RTOL = 1e-3
 MOTION_ATOL = 5e-6
 # the in-loop neighbor passes on the card against the CPU at full width: the
@@ -503,9 +521,9 @@ def neighbor_passes(fw, grid, st):
     return out
 
 
-def motion_check(name, prob, grid, state0, fw, dev, card):
+def motion_check(name, prob, grid, state0, fw, dev, card, tag="8 motion"):
     """One chunk of ``name`` from MOTION_T0; fails unless every prescribed
-    body moved as its callback says."""
+    body moved as its callback says; prints under ``tag``."""
     import torch
 
     from gpusph_tpu_torch.bodies import init_bodies_state
@@ -553,7 +571,7 @@ def motion_check(name, prob, grid, state0, fw, dev, card):
         moved.append(shift)
         report.append(f"body {spec.object_idx}: moved {shift:.6g} m, off by {err:.3g} "
                       f"(limit {limit:.3g})")
-    say(f"[8 motion] {name}: one chunk from t {t0} to {t1:.6g}: " + "; ".join(report)
+    say(f"[{tag}] {name}: one chunk from t {t0} to {t1:.6g}: " + "; ".join(report)
         + f" [{card}]")
     if not moved or worst > 0 or min(moved) <= 10 * MOTION_ATOL:
         fail(f"{name}: a prescribed body did not move as its callback says")
@@ -949,6 +967,469 @@ def general_phase(dev, card, dam):
         if not drift["pos"] <= limit:
             fail(f"golden {name}: pos drift above 1e-3 x max|pos|")
     say(f"[9 golden] phase 9 took {time.perf_counter() - phase_t0:.1f} s (host clock)")
+
+
+# phase 10: the granular Jacobi solver (LithostaticLJ, LithostaticDYN and
+# DamBreakMobileBed on the general path), the DEM terrain (DEMExample on the
+# forces kernel), OilJet (Grenier and a piston, general path) and Generic
+# (an INI file through the CLI, forces kernel)
+LITHOSTATIC = {"LithostaticLJ": {}, "LithostaticDYN": {}}
+# the effective pressure after the first (cold) solve from zero: linear in
+# depth (R^2 of the fit over the interior sediment at least SLOPE_MIN_R2).
+# Its slope is not (rho_sed - rho_w) g, and the JAX package's solver gives
+# the same ratio (0.643 for LithostaticLJ at dp 0.1, LithostaticDYN 0.831;
+# scripts/lithostatic_slope.py --package jax --problem NAME --deltap 0.1 on
+# the CPU; ROADMAP section 3 has what the wall layers change).  So the
+# card's slope at dp 0.1 is held against the JAX package's on the same
+# scene, within SLOPE_RTOL, and the ratio is printed
+SLOPE_MIN_R2 = 0.98
+SLOPE_DP = 0.1
+SLOPE_RTOL = 0.01
+JAX_SLOPE = {"LithostaticLJ": 5628.112439805228, "LithostaticDYN": 7273.321685244211}
+# DamBreakMobileBed: one forces phase at its default width (dp 0.01), part
+# by part; a chunk from its build at twice its dp (a chunk at the default
+# width takes 20 forces phases of several seconds each)
+MOBILE_BED = {}
+MOBILE_BED_CHUNK = {"deltap": 0.02}
+DEM = {}
+DEM_ITERS = 50
+OILJET = {}
+# card vs CPU at reduced widths: LithostaticDYN at dp 0.1 with the seeded
+# jitter of tests/test_jacobi.py (2% of dp: on a perfect lattice the normals
+# are rounding noise and the cone test flips on it), the flags exact and a
+# Jacobi solve of JACOBI_CPU_ITERS iterations (thresholds 0) at
+# JACOBI_RTOL; the DEM force on DEMExample's final state, its particles
+# moved to 0.3-1 r0 above the terrain (the force grows as (r0/d)^12 there),
+# at DEM_RTOL and DEM_ATOL_FRAC of the largest
+LITHOSTATIC_CPU = {"deltap": 0.1}
+JACOBI_CPU_ITERS = 10
+JACOBI_RTOL = 1e-4
+DEM_RTOL = 1e-5
+DEM_ATOL_FRAC = 1e-7
+GENERIC_ITERS = 20
+GENERIC_DP = 0.015
+# Generic: a DamBreak3D-like box scene with an STL obstacle made by numpy
+GENERIC_INI = """
+[problem]
+name = GenericDamBreak
+deltap = {dp}
+tend = 1.0
+boundary = DYN_BOUNDARY
+turbulence = ARTIFICIAL
+density_diffusion = COLAGROSSI
+gravity = 0 0 -9.81
+water_level = 0.4
+
+[domain]
+origin = 0 0 0
+size = 1.6 0.67 0.6
+
+[fluid0]
+rho0 = 1000
+gamma = 7
+c0 = 20
+
+[geometry0]
+type = fixed_boundary
+shape = box_border
+origin = 0 0 0
+size = 1.6 0.67 0.6
+open_top = true
+
+[geometry1]
+type = fluid
+shape = box
+origin = 0.045 0.045 0.045
+size = 0.4 0.58 0.4
+
+[geometry2]
+type = fixed_boundary
+shape = stl
+path = {stl}
+
+[geometry3]
+type = testpoint
+origin = 1.2 0.335 0.02
+"""
+
+
+def box_stl(path, lo, hi):
+    """A binary STL of the axis-aligned box [lo, hi], made with numpy."""
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    corner = lambda bits: np.where(np.array(bits, bool), hi, lo)  # noqa: E731
+    tris = []
+    for axis in range(3):
+        a1, a2 = (axis + 1) % 3, (axis + 2) % 3
+        for side in (0, 1):
+            def p(u, v):
+                bits = [0, 0, 0]
+                bits[axis], bits[a1], bits[a2] = side, u, v
+                return corner(bits)
+            tris += [(p(0, 0), p(1, 0), p(1, 1)), (p(0, 0), p(1, 1), p(0, 1))]
+    rec = np.zeros(len(tris), np.dtype([("n", "<3f4"), ("v", "<(3,3)f4"), ("attr", "<u2")]))
+    rec["v"] = np.asarray(tris, np.float32)
+    with open(path, "wb") as f:
+        f.write(b"box".ljust(80, b"\0"))
+        f.write(np.uint32(len(tris)).tobytes())
+        f.write(rec.tobytes())
+
+
+def granular_phase(dev, card):
+    """Phase 10 (see the docstring)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from gpusph_tpu_torch import integrator
+    from gpusph_tpu_torch.bodies import init_bodies_state
+    from gpusph_tpu_torch.integrator import Simulator, make_sim_chunk
+    from gpusph_tpu_torch.ops import forces_kernel
+    from gpusph_tpu_torch.ops.dem import apply_dem_force, dem_height_normal
+    from gpusph_tpu_torch.ops.forces import compute_forces
+    from gpusph_tpu_torch.ops.jacobi import (detect_surface_interface, effpres_slope,
+                                             jacobi_effpres)
+    from gpusph_tpu_torch.ops.neighbors import build_cells
+    from gpusph_tpu_torch.ops.visc import effective_viscosity
+    from gpusph_tpu_torch.problems.base import get_problem
+    from gpusph_tpu_torch.state import FG_INTERFACE, FG_SURFACE, is_fluid
+
+    phase_t0 = time.perf_counter()
+    part_t0 = [phase_t0]
+
+    def part_s():
+        """Host seconds since the last call (or the phase's start)."""
+        now = time.perf_counter()
+        s, part_t0[0] = now - part_t0[0], now
+        return s
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def problem(name, opts):
+        t0 = time.perf_counter()
+        prob = get_problem(name)(dict(opts))
+        grid, state = prob.build()
+        return prob, prob.fw.finalize(), grid, state, time.perf_counter() - t0
+
+    def start_args(prob, fw, state0):
+        st0 = state0.to(dev)
+        dt0 = fw.sp.dt or 0.1 * fw.sp.slength / max(f.c0 for f in fw.pp.fluids)
+        return (st0, torch.tensor(dt0, **f32), torch.tensor(0.0, **f32), 0,
+                init_bodies_state(prob.body_specs(), st0))
+
+    def sorted_inputs(fw, grid, st):
+        sts, aux = build_cells(grid, st)
+        cells = torch.nonzero(aux.cell_count[:grid.n_cells]).squeeze(1)
+        return sts, aux, cells
+
+    def with_jacobi(fw, **kw):
+        return dataclasses.replace(fw, simparams=dataclasses.replace(fw.sp, **kw))
+
+    def run_chunks(name, prob, fw, grid, state0, warm_up=True):
+        """A warm-up chunk from the build (unless not ``warm_up``) and a
+        timed chunk (CUDA events), recording each EFFPRES solve's iterations
+        and time; phase 4's checks.  Returns (timed output, chunk ms, warm-up
+        s, solves of the warm-up chunk, solves of the timed chunk, launches,
+        the first solve's (positions, effpres, info))."""
+        chunk = make_sim_chunk(fw, grid, bodies_specs=prob.body_specs())
+        args = start_args(prob, fw, state0)
+        record, first = [], []
+        original = integrator.jacobi_effpres
+
+        def recorded(*a, **k):
+            b = torch.cuda.Event(enable_timing=True)
+            b.record()
+            out = original(*a, **k)
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            record.append((out[2], b, e))
+            if not first:
+                first.append((a[2].pos.clone(), out[0].clone(), out[1].clone()))
+            return out
+
+        integrator.jacobi_effpres = recorded
+        try:
+            forces_kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            warm = chunk(*args) if warm_up else args
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            warm_solves = [(int(it), b.elapsed_time(e)) for it, b, e in record]
+            record.clear()
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            out = chunk(*warm[:5])
+            end.record()
+            torch.cuda.synchronize()
+            solves = [(int(it), b.elapsed_time(e)) for it, b, e in record]
+        finally:
+            integrator.jacobi_effpres = original
+        launches = forces_kernel.launches
+        st, dt1 = out[0], float(out[1])
+        n0, n1 = int(state0.count_active()), int(st.count_active())
+        finite = all(bool(torch.isfinite(t).all()) for t in (st.pos, st.vel, st.rho))
+        if n1 != n0 or not finite or not dt1 > 1e-10:
+            fail(f"{name}: n_active {n0} -> {n1}, finite {finite}, dt {dt1}")
+        if launches != 0:
+            fail(f"{name}: the forces kernel launched {launches} times on the general path")
+        return (out, begin.elapsed_time(end), warm_s, warm_solves, solves, launches,
+                first[0] if first else None)
+
+    def cold_slope(name, opts):
+        """effpres_slope and the iterations of one solve from zero effective
+        pressure on the build."""
+        prob, fw, grid, state0, _ = problem(name, opts)
+        sts, aux, cells = sorted_inputs(fw, grid, state0.to(dev))
+        ep, info, iters = jacobi_effpres(fw, grid, sts, aux, sts.extras["effpres"],
+                                         cells=cells)
+        return (*effpres_slope(fw, sts.pos, ep, info), int(iters))
+
+    def solves_text(solves):
+        its = [i for i, _ in solves]
+        return (f"{len(solves)} solves, iterations {min(its)}-{max(its)} (mean "
+                f"{np.mean(its):.4g}), {sum(ms for _, ms in solves):.6g} ms")
+
+    # --- the lithostatic problems ------------------------------------------------
+    for name, opts in LITHOSTATIC.items():
+        prob, fw, grid, state0, build_s = problem(name, opts)
+        n0 = int(state0.count_active())
+        out, chunk_ms, warm_s, warm_solves, solves, launches, first = run_chunks(
+            name, prob, fw, grid, state0)
+        steps = fw.sp.buildneibsfreq
+        sts, aux, cells = sorted_inputs(fw, grid, out[0])
+        # the cold solve's time over its iterations (its one surface
+        # detection is under 0.5% of it)
+        iters, cold_ms = warm_solves[0]
+        it_ms = cold_ms / iters
+        # the effective pressure after the cold solve, over the interior
+        # sediment, and the same fit at dp 0.1 against the JAX package's
+        slope, r2, n_fit, want = effpres_slope(fw, *first)
+        t0 = time.perf_counter()
+        slope_01, _, _, _, iters_01 = cold_slope(name, {**opts, "deltap": SLOPE_DP})
+        slope_01_s = time.perf_counter() - t0
+        K = fw.sp.max_parts_per_cell
+        say(f"[10 lithostatic] {name}: {n0} particles (build {build_s:.3f} s, grid "
+            f"{'x'.join(map(str, grid.ncells))}, K {K}, {int(cells.shape[0]) * K * 27 * K} "
+            f"pair slots per pass); warm-up chunk {warm_s:.3f} s (host clock; "
+            f"{solves_text(warm_solves)}), timed chunk {chunk_ms:.6g} ms (CUDA events; "
+            f"{solves_text(solves)}) = {n0 * steps / chunk_ms * 1e3:.6g} particle-steps/s; "
+            f"Jacobi {it_ms:.6g} ms per iteration (the cold solve's {cold_ms:.6g} ms over "
+            f"{iters}); forces-kernel launches {launches}; dt {float(out[1]):.6g} [{card}]")
+        jax_slope = JAX_SLOPE[name]
+        say(f"[10 slope] {name}: effpres after the cold solve ({iters} iterations) falls "
+            f"{slope:.6g} Pa/m with depth over {n_fit} interior sediment particles (R^2 "
+            f"{r2:.6f}, at least {SLOPE_MIN_R2}), {slope / want:.4f} of (rho_sed - rho_w) g = "
+            f"{want:.6g}; at dp {SLOPE_DP} {slope_01:.6g} Pa/m ({iters_01} iterations, "
+            f"{slope_01_s:.3f} s with the build) against the JAX package's {jax_slope:.6g} "
+            f"(rtol {SLOPE_RTOL}); {name} took {part_s():.1f} s [{card}]")
+        if not (r2 >= SLOPE_MIN_R2 and slope > 0
+                and abs(slope_01 - jax_slope) <= SLOPE_RTOL * jax_slope):
+            fail(f"{name}: the effective pressure is not linear in depth, or its slope at "
+                 f"dp {SLOPE_DP} is not the JAX package's")
+        del out, sts, aux
+
+    # --- DamBreakMobileBed: one forces phase at its default width ------------------
+    name = "DamBreakMobileBed"
+    prob, fw, grid, state0, build_s = problem(name, MOBILE_BED)
+    n0 = int(state0.count_active())
+    sts, aux, cells = sorted_inputs(fw, grid, state0.to(dev))
+    K = fw.sp.max_parts_per_cell
+    slots = int(cells.shape[0]) * K * 27 * K
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    # the surface detection alone, then the forces phase: the solve (which
+    # runs its own detection first), CALC_VISC and the general pass
+    ev[0].record()
+    detect_surface_interface(fw, grid, sts, aux, cells=cells)
+    ev[1].record()
+    ep, info, iters = jacobi_effpres(fw, grid, sts, aux, sts.extras["effpres"], cells=cells)
+    ev[2].record()
+    sts = sts.replace(info=info, extras=dict(sts.extras, effpres=ep))
+    effvisc = effective_viscosity(fw, grid, sts, aux, cells=cells, effpres=ep)
+    ev[3].record()
+    f = compute_forces(fw, grid, sts, aux, cells=cells, effvisc=effvisc)
+    ev[4].record()
+    torch.cuda.synchronize()
+    det_ms, solve_ms, visc_ms, pass_ms = (ev[i].elapsed_time(ev[i + 1]) for i in range(4))
+    it_ms = (solve_ms - det_ms) / int(iters)
+    phase_ms = solve_ms + visc_ms + pass_ms
+    finite = bool(torch.isfinite(f.DvDt).all()) and bool(torch.isfinite(ep).all())
+    say(f"[10 mobile bed] {name} at dp {fw.sp.deltap}: {n0} particles (build {build_s:.3f} s, "
+        f"grid {'x'.join(map(str, grid.ncells))}, K {K}, {slots} pair slots per pass); one "
+        f"forces phase (CUDA events) {phase_ms:.6g} ms: EFFPRES solve {solve_ms:.6g} ms "
+        f"({int(iters)} iterations from the lithostatic start; its surface detection "
+        f"{det_ms:.6g} ms timed alone, {it_ms:.6g} ms per iteration), CALC_VISC "
+        f"{visc_ms:.6g} ms, general pass {pass_ms:.6g} ms ({pass_ms * 1e6 / slots:.4g} ns "
+        f"per slot); {n0 / phase_ms * 1e3 / 2:.6g} particle-steps/s at two phases a step; "
+        f"finite {finite} [{card}]")
+    if not finite:
+        fail(f"{name}: a non-finite forces phase at its default width")
+    del sts, aux, ep, effvisc, f
+    torch.cuda.empty_cache()
+    prob, fw, grid, state0, build_s = problem(name, MOBILE_BED_CHUNK)
+    n0 = int(state0.count_active())
+    out, chunk_ms, _, _, solves, launches, _ = run_chunks(name, prob, fw, grid, state0,
+                                                          warm_up=False)
+    steps = fw.sp.buildneibsfreq
+    say(f"[10 mobile bed] {name} at dp {fw.sp.deltap}: {n0} particles; one chunk from the "
+        f"build (no warm-up chunk: the default width's forces phase ran first) "
+        f"{chunk_ms:.6g} ms (CUDA events; {solves_text(solves)}) = "
+        f"{n0 * steps / chunk_ms * 1e3:.6g} particle-steps/s; forces-kernel launches "
+        f"{launches}; dt {float(out[1]):.6g}; {name} took {part_s():.1f} s [{card}]")
+    del out
+    torch.cuda.empty_cache()
+
+    # --- DEMExample on the forces kernel -----------------------------------------
+    name = "DEMExample"
+    prob, fw, grid, state0, build_s = problem(name, DEM)
+    n0 = int(state0.count_active())
+    sim = Simulator(prob.fw, grid, bodies_specs=prob.body_specs(), device="cuda")
+    forces_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = sim.run(state0, maxiter=DEM_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = forces_kernel.launches
+    n1 = int(st.count_active())
+    finite = all(bool(torch.isfinite(t).all()) for t in (st.pos, st.vel, st.rho))
+    fluid = (st.active & is_fluid(st.info))
+    z0, _ = dem_height_normal(fw.dem, st.pos)
+    clearance = float((st.pos[:, 2] - z0)[fluid].min())
+    ok, err, rep = compare_kernel(sim.fw, grid, st)
+    chunk_ms = cuda_ms(lambda: sim._chunk(st, torch.tensor(sim.dt, **f32),
+                                         torch.tensor(sim.t, **f32), 0, sim.bodies), 1,
+                       warmup=0)
+    say(f"[10 dem] {name}: {n0} particles, {DEM_ITERS} iterations in {wall:.3f} s = "
+        f"{n0 * DEM_ITERS / wall:.6g} particle-steps/s (host clock, first chunk included); "
+        f"one chunk {chunk_ms:.6g} ms (CUDA events); forces-kernel launches {launches}; "
+        f"lowest fluid particle {clearance:.6g} m above the terrain; n_active {n0} -> {n1}; "
+        f"finite {finite}; dt {sim.dt:.6g}; kernel vs plain version "
+        f"{'ok' if ok else 'MISMATCH'} {json.dumps(rep)} [{card}]")
+    if launches != 2 * DEM_ITERS:
+        fail(f"{name}: the forces kernel launched {launches} times in {DEM_ITERS} iterations")
+    if n1 != n0 or not finite or not sim.dt > 1e-10 or not clearance > 0.0:
+        fail(f"{name}: n_active {n0} -> {n1}, finite {finite}, dt {sim.dt}, lowest fluid "
+             f"particle {clearance} m above the terrain")
+    if not ok:
+        fail(f"{name}: the kernel disagrees with its plain version")
+    # the DEM force card vs CPU: the final state's particles moved to seeded
+    # heights within r0 of the terrain, where the force acts
+    is_fl = is_fluid(st.info)
+    rng = np.random.default_rng(7)
+    lift = torch.as_tensor(rng.uniform(0.3, 1.0, st.capacity) * fw.pp.r0, **f32)
+    near = torch.cat([st.pos[:, :2], (z0 + lift)[:, None]], dim=1)
+    dvdt = torch.zeros_like(st.vel)
+    a = apply_dem_force(fw, near, st.vel, st.mass, is_fl, dvdt).cpu().numpy()
+    b = apply_dem_force(fw, near.cpu(), st.vel.cpu(), st.mass.cpu(), is_fl.cpu(),
+                        dvdt.cpu()).numpy()
+    dem_ok, dem_err, dem_max = held(a, b, DEM_RTOL, DEM_ATOL_FRAC)
+    pushed = int((np.abs(b) > 0).any(1).sum())
+    say(f"[10 card-cpu] {name} DEM force on the final state's particles moved to seeded "
+        f"heights within r0 of the terrain: max abs diff {dem_err:.3g} of {dem_max:.3g} "
+        f"(rtol {DEM_RTOL}, atol {DEM_ATOL_FRAC} x max); {pushed} particles pushed; "
+        f"{name} took {part_s():.1f} s [{card}]")
+    if not dem_ok or pushed < int(is_fl.sum()) // 2:
+        fail(f"{name}: the DEM force on the card disagrees with the CPU")
+    del sim, st
+
+    # --- OilJet on the general path ------------------------------------------------
+    name = "OilJet"
+    prob, fw, grid, state0, build_s = problem(name, OILJET)
+    n0 = int(state0.count_active())
+    # the piston's chunk (from the build, at MOTION_T0) is the warm-up chunk
+    forces_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    motion_check(name, prob, grid, state0, fw, dev, card, tag="10 motion")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    chunk = make_sim_chunk(fw, grid, bodies_specs=prob.body_specs())
+    args = start_args(prob, fw, state0)
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    out = chunk(*args)
+    end.record()
+    torch.cuda.synchronize()
+    chunk_ms = begin.elapsed_time(end)
+    launches = forces_kernel.launches
+    st, dt1 = out[0], float(out[1])
+    n1 = int(st.count_active())
+    finite = all(bool(torch.isfinite(t).all()) for t in (st.pos, st.vel, st.rho))
+    steps = fw.sp.buildneibsfreq
+    say(f"[10 oiljet] {name}: {n0} particles (build {build_s:.3f} s); warm-up (the piston's) "
+        f"chunk {warm_s:.3f} s (host clock), timed chunk from the build {chunk_ms:.6g} ms "
+        f"(CUDA events) = {n0 * steps / chunk_ms * 1e3:.6g} particle-steps/s; forces-kernel "
+        f"launches {launches}; n_active {n0} -> {n1}; finite {finite}; dt {dt1:.6g}; {name} "
+        f"took {part_s():.1f} s [{card}]")
+    if launches != 0:
+        fail(f"{name}: the forces kernel launched {launches} times on the general path")
+    if n1 != n0 or not finite or not dt1 > 1e-10:
+        fail(f"{name}: n_active {n0} -> {n1}, finite {finite}, dt {dt1}")
+
+    # --- Generic through the CLI ------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        stl_path = os.path.join(tmp, "obstacle.stl")
+        box_stl(stl_path, (0.9, 0.24, 0.045), (1.02, 0.36, 0.2))
+        ini = os.path.join(tmp, "generic.ini")
+        with open(ini, "w") as f:
+            f.write(GENERIC_INI.format(dp=GENERIC_DP, stl=stl_path))
+        forces_kernel.launches = 0
+        t0 = time.perf_counter()
+        text = run_cli(["Generic", "--config", ini, "--maxiter", str(GENERIC_ITERS),
+                        "--dir", os.path.join(tmp, "out")])
+        wall = time.perf_counter() - t0
+        launches = forces_kernel.launches
+        frames = sorted(os.listdir(os.path.join(tmp, "out", "data")))
+        # one chunk of the same scene from its build (CUDA events)
+        prob, fw, grid, state0, build_s = problem("Generic", {"config": ini})
+        chunk = make_sim_chunk(fw, grid, bodies_specs=prob.body_specs())
+        args = start_args(prob, fw, state0)
+        chunk_ms = cuda_ms(lambda: chunk(*args), 2, warmup=1)
+    head = text.splitlines()[0]
+    n_gen = int(head.split(":")[1].split()[0])
+    say(f"[10 generic] python -m gpusph_tpu_torch Generic --config (a DamBreak3D-like box with "
+        f"an STL obstacle): {n_gen} particles, {GENERIC_ITERS} iterations in {wall:.3f} s (host "
+        f"clock, build and writes included); forces-kernel launches {launches}; frames "
+        f"{len(frames)}; one chunk from the build {chunk_ms:.6g} ms (CUDA events) = "
+        f"{n_gen * fw.sp.buildneibsfreq / chunk_ms * 1e3:.6g} particle-steps/s; Generic took "
+        f"{part_s():.1f} s [{card}]")
+    if launches != 2 * GENERIC_ITERS or "Simulation end" not in text or "device cuda" not in head:
+        fail(f"Generic: {launches} forces-kernel launches in {GENERIC_ITERS} iterations, or "
+             "the run did not end on the card")
+
+    # --- card vs CPU at a reduced width: surface flags and a fixed-count solve -----
+    name = "LithostaticDYN"
+    prob, fw, grid, state0, _ = problem(name, LITHOSTATIC_CPU)
+    rng = np.random.default_rng(42)
+    jitter = rng.uniform(-0.02 * fw.sp.deltap, 0.02 * fw.sp.deltap, tuple(state0.pos.shape))
+    state0 = state0.replace(pos=state0.pos + torch.as_tensor(jitter, dtype=torch.float32))
+    sts, aux, cells = sorted_inputs(fw, grid, state0.to(dev))
+    cpu_st, cpu_aux, cpu_cells = sorted_inputs(fw, grid, sts.to("cpu"))
+    if not torch.equal(sts.id.cpu(), cpu_st.id):
+        fail(f"{name}: the card and the CPU sort the particles differently")
+    flags = FG_SURFACE | FG_INTERFACE
+    a = detect_surface_interface(fw, grid, sts, aux, cells=cells).cpu() & flags
+    b = detect_surface_interface(fw, grid, cpu_st, cpu_aux, cells=cpu_cells) & flags
+    flips = int((a != b).sum())
+    fixed = with_jacobi(fw, jacobi_maxiter=JACOBI_CPU_ITERS, jacobi_residual=0.0,
+                        jacobi_backerr=0.0)
+    ep_a, _, it_a = jacobi_effpres(fixed, grid, sts, aux, sts.extras["effpres"], cells=cells)
+    t0 = time.perf_counter()
+    ep_b, _, it_b = jacobi_effpres(fixed, grid, cpu_st, cpu_aux, cpu_st.extras["effpres"],
+                                   cells=cpu_cells)
+    cpu_s = time.perf_counter() - t0
+    jac_ok, jac_err, jac_max = held(ep_a.cpu().numpy(), ep_b.numpy(), JACOBI_RTOL, 1e-6)
+    say(f"[10 card-cpu] {name} dp {fw.sp.deltap} (jittered 2% of dp, {int(sts.count_active())} "
+        f"particles): surface and interface flags differ on {flips} particles "
+        f"({int(((b & FG_SURFACE) != 0).sum())} at the surface); {int(it_a)} and {int(it_b)} "
+        f"Jacobi iterations, effpres max abs diff {jac_err:.3g} of {jac_max:.3g} (rtol "
+        f"{JACOBI_RTOL}, atol 1e-6 x max); the CPU solve took {cpu_s:.3f} s [{card}]")
+    if flips or not jac_ok or not int(it_a) == int(it_b) == JACOBI_CPU_ITERS:
+        fail(f"{name}: the surface flags or the Jacobi solve on the card disagree with the CPU")
+    say(f"[10 card-cpu] phase 10 took {time.perf_counter() - phase_t0:.1f} s (host clock)")
 
 
 def gravity_check(name, fw, grid, start_args, record, sts, aux, cells, kw, card):
@@ -1352,6 +1833,9 @@ def main() -> int:
 
     # --- 9. the general pair path --------------------------------------------------
     general_phase(dev, card, (dam_fw, dam_grid, st2))
+
+    # --- 10. granular Jacobi solver, DEM terrain, OilJet, Generic ---------------------
+    granular_phase(dev, card)
 
     say(json.dumps({"kernels": [{
         "name": "forces",

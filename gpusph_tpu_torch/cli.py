@@ -10,6 +10,12 @@ Usage:
       [--checkpoints N] [--repack] [--repack-only] [--device cuda|cpu]
       [--key value ...]
 
+Every other ``--key value`` goes to the problem as an option, among them
+``--config FILE`` (Generic: the INI file that defines the scene),
+``--dem FILE`` (DEMExample: a GRASS ASCII terrain instead of the built-in
+hill), ``--jacobi_maxiter N`` (the granular problems), ``--max_ppc N``
+(the cell capacity) and the catalog problems' own options.
+
 Runs on the CUDA card unless ``--device cpu`` is given.  Output goes to
 ``--dir`` (default ``tests/<Problem>_<YYYYmmddTHHMMSS>``):
 
@@ -26,14 +32,17 @@ Runs on the CUDA card unless ``--device cpu`` is given.  Output goes to
 
 The last write of a run is forced: the final state is always written as a
 frame and, with checkpoints on, as a hotfile.  ``--resume`` takes a hotfile
-of either package and continues from its iteration.  Ported so far: the
-problems of ``problems/catalog.py`` (DamBreak3D, Poiseuille,
-PoiseuillePapanastasiou, StillWater, LockExchange, OpenChannel,
-BuoyancyTest, Spheric2, AccuracyTest, Objects, DynBoundsExample,
-ProblemExample, DamBreakGate, WaveTank, SolitaryWave, SlidingWedge,
-OffshorePile, Seiche, RTInstability, Bubble, BiFluidPoiseuille).  Not ported: multi-device runs
-(``--ndev``), and ``--debug timing``, whose counterpart is
-``chip_smoke.py`` [4 layers].
+of either package and continues from its iteration; a granular problem's
+hotfile carries its effective pressure.  Ported so far: the problems of
+``problems/catalog.py`` (DamBreak3D, Poiseuille, PoiseuillePapanastasiou,
+StillWater, LockExchange, OpenChannel, BuoyancyTest, Spheric2,
+AccuracyTest, Objects, DynBoundsExample, ProblemExample, DamBreakGate,
+WaveTank, SolitaryWave, SlidingWedge, OffshorePile, Seiche, RTInstability,
+Bubble, BiFluidPoiseuille, LithostaticLJ, LithostaticDYN,
+DamBreakMobileBed, DEMExample, OilJet) and Generic
+(``problems/generic.py``); the SA problems wait for their slice.  Not
+ported: multi-device runs (``--ndev``), and ``--debug timing``, whose
+counterpart is ``chip_smoke.py`` [4 layers].
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ cell sort + block plan) and then runs ``buildneibsfreq`` predictor/corrector
 steps in a Python loop.  A step starts with the density filters that are
 due at its global iteration (FILTER phase, `ops/filters.py`).  Each forces
 pass first refreshes Grenier's sigma and density (COMPUTE_DENSITY,
-`ops/grenier.py`) and computes the SPS stress and the effective viscosity
+`ops/grenier.py`), solves for the granular effective pressure (EFFPRES,
+`ops/jacobi.py`) and computes the SPS stress and the effective viscosity
 where the model needs them (CALC_VISC, `ops/visc.py`).  The forces engine
 follows the configuration: the forces kernel (`ops/forces_kernel.py`; the
 CUDA kernel on the card, its plain version on the CPU) where
@@ -39,6 +40,7 @@ from .ops.forces import compute_forces, gravity_vector
 from .ops.forces_kernel import compute_forces_kernel, kernel_supported
 from .ops.grenier import grenier_density_sigma
 from .ops.integrate import compute_dt, euler_step
+from .ops.jacobi import jacobi_effpres
 from .ops.neighbors import CellGrid, build_cells
 from .ops.visc import effective_viscosity, sps_stress
 from .state import ParticleState
@@ -79,18 +81,14 @@ def resolve_device(device=None) -> torch.device:
 def _unported(fw: SimFramework) -> Optional[str]:
     """The missing slice a configuration needs, or None (the options that
     need SA boundaries are named before SA itself)."""
-    if fw.visc.rheologytype == RheologyType.GRANULAR:
-        return "granular rheology (Jacobi effective pressure)"
     if fw.visc.turbmodel == TurbulenceModel.KEPSILON:
-        return "the k-epsilon model"
+        return "the k-epsilon model (ROADMAP item 9)"
     if fw.flags & SimFlags.ENABLE_DENSITY_SUM:
-        return "density summation"
+        return "density summation (with SA boundaries, ROADMAP item 8)"
     if fw.io is not None:
-        return "open boundaries"
+        return "open boundaries (ROADMAP item 9)"
     if fw.sa_boundary:
-        return "SA boundaries"
-    if fw.dem is not None:
-        return "DEM terrain (ops/dem.py, with DEMExample)"
+        return "SA boundaries (ROADMAP item 8)"
     return None
 
 
@@ -115,23 +113,32 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
     specs = tuple(bodies_specs or ())
     use_kernel = kernel_supported(fw, grid)
     grenier = fw.sph_formulation == SPHFormulation.SPH_GRENIER
+    granular = fw.visc.rheologytype == RheologyType.GRANULAR
     needs_sps = fw.visc.turbmodel == TurbulenceModel.SPS
     needs_effvisc = fw.visc.needs_effective_visc
 
     def forces(state, plan, aux, cells, dt, t):
         """One forces pass at time t; returns it and the state, whose
-        density Grenier's COMPUTE_DENSITY refreshed."""
+        density Grenier's COMPUTE_DENSITY and whose effective pressure and
+        surface flags the EFFPRES solve refreshed."""
         sigma = sps_tau = effvisc = None
         if grenier:
             # densityGrenierDevice before every forces pass (JAX
             # integrator.py:124-130)
             sigma, rho = grenier_density_sigma(fw, grid, state, aux, cells=cells)
             state = state.replace(rho=rho)
+        if granular:
+            # the EFFPRES Jacobi solve from the carried effective pressure
+            # (JAX integrator.py:127-133)
+            ep, info, _ = jacobi_effpres(fw, grid, state, aux, state.extras["effpres"],
+                                         cells=cells)
+            state = state.replace(extras=dict(state.extras, effpres=ep), info=info)
         # CALC_VISC before each forces pass (JAX integrator.py:95-106)
         if needs_sps:
             sps_tau, _ = sps_stress(fw, grid, state, aux, cells=cells)
         if needs_effvisc:
-            effvisc = effective_viscosity(fw, grid, state, aux, cells=cells)
+            effvisc = effective_viscosity(fw, grid, state, aux, cells=cells,
+                                          effpres=state.extras.get("effpres"))
         if use_kernel:
             return compute_forces_kernel(fw, grid, state, plan, effvisc), state
         return compute_forces(fw, grid, state, aux, dt=dt, sps_tau=sps_tau,
@@ -168,7 +175,7 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
         # the block plan serves the kernel path only
         plan = build_block_plan(fw, grid, state, aux) if use_kernel else None
         cells = None
-        if not use_kernel or fw.filters or needs_effvisc:
+        if not use_kernel or fw.filters or needs_effvisc or granular:
             # the occupied cells for the neighbor passes, found once per
             # chunk (waits for the device)
             cells = torch.nonzero(aux.cell_count[:grid.n_cells]).squeeze(1)

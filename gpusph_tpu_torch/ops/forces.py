@@ -99,8 +99,6 @@ def _unported(fw) -> Optional[str]:
         return "the k-epsilon model (ROADMAP item 9)"
     if fw.sa_boundary:
         return "SA boundaries (ROADMAP item 8)"
-    if fw.dem is not None:
-        return "DEM terrain (ops/dem.py, ROADMAP item 10)"
     return None
 
 
@@ -372,7 +370,8 @@ def compute_forces(fw, grid, state, aux, *, dt=None, sps_tau=None, effvisc=None,
 def finalize_general(fw, state, fields, sums, gvec) -> ForcesOut:
     """The finalize step of the general pass (finalizeforcesDevice,
     forces_kernel.def:4037-4110): Grenier's fixup, gravity, moving-body
-    rows, planes, the relative-density rate and the CFL maxima."""
+    rows, planes, the DEM terrain, the relative-density rate and the CFL
+    maxima."""
     from .planes import apply_plane_forces  # planes takes _powf from here
 
     pp = fw.pp
@@ -393,6 +392,11 @@ def finalize_general(fw, state, fields, sums, gvec) -> ForcesOut:
         DvDt = torch.where(is_fluid_c[:, None], DvDt, 0.0)
     if fw.planes:
         DvDt = apply_plane_forces(fw, state.pos, state.vel, state.mass, is_fluid_c, DvDt)
+    if fw.dem is not None:
+        # the terrain's geometry force (geom_core.cu DemTangentPlane + LJ)
+        from .dem import apply_dem_force
+
+        DvDt = apply_dem_force(fw, state.pos, state.vel, state.mass, is_fluid_c, DvDt)
     if grenier:
         # DJ/Dt = (pair sum)/sigma; euler integrates J, the density comes
         # from the COMPUTE_DENSITY pass

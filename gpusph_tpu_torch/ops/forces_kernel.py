@@ -9,8 +9,8 @@ Counterpart of ``gpusph_tpu/ops/forces_pallas.py:564-984``.  A pass is
    flat tiles (`csrc/forces.cu` on the card; ``pair_forces_reference``, the
    plain PyTorch version, for tensors on the CPU);
 3. ``compute_forces_kernel``: un-binning to particle order and the finalize
-   step (gravity, moving-body masking, plane forces, rho0 scaling, CFL
-   maxima), as
+   step (gravity, moving-body masking, plane forces, the DEM terrain's
+   force, rho0 scaling, CFL maxima), as
    `finalizeforcesDevice` (`forces_kernel.def:4037-4110`) and ``dtreduce``
    (`forces.cu:557-600`).
 
@@ -44,6 +44,7 @@ from ..framework import SimFramework
 from ..state import ParticleState, fluid_num, is_active, part_type
 from . import eos
 from .block_plan import B, GPT, GROUP, PAD_POS, TS, BlockPlan, group_count
+from .dem import apply_dem_force
 from .forces import ForcesOut, _avg, _powf
 from .kernels import F as kernF
 from .kernels import W as kernW
@@ -476,8 +477,6 @@ def compute_forces_kernel(fw: SimFramework, grid: CellGrid,
                           effvisc: Optional[torch.Tensor] = None) -> ForcesOut:
     """One forces pass of the *sorted* state over its rebuild-time plan;
     ``effvisc`` as in ``prop_table``."""
-    if fw.dem is not None:
-        raise NotImplementedError("DEM terrain is not ported yet")
     out = pair_forces(fw, grid, prop_table(fw, state, effvisc), plan)
     return finalize_forces(fw, state, plan, out, effvisc)
 
@@ -510,6 +509,11 @@ def finalize_forces(fw: SimFramework, state: ParticleState, plan: BlockPlan,
     if fw.planes:
         DvDt = apply_plane_forces(fw, state.pos, state.vel, state.mass,
                                   is_fluid_c[:, 0], DvDt)
+    if fw.dem is not None:
+        # the terrain's geometry force after the planes, as the JAX package
+        # applies it after the Pallas kernel (forces_pallas.py:948-960)
+        DvDt = apply_dem_force(fw, state.pos, state.vel, state.mass, is_fluid_c[:, 0],
+                               DvDt)
     f_num = fluid_num(state.info)
     rho0 = eos._per_fluid(pp, f_num, [f.rho0 for f in pp.fluids])
     DrDt = DrDt_phys / rho0

@@ -26,10 +26,14 @@ import torch
 
 from .neighbors import CellAux, CellGrid, neighbor_cell_ids
 
-# pair slots of one chunk: C * K * 27K <= 2**24, so each f32 pair tensor of
-# a chunk takes at most 64 MiB (DamBreak3D at dp 0.012 builds K = 72: 119
-# cells per chunk)
+# pair slots of one chunk: C * K * 27K <= 2**24 on the card, so each f32
+# pair tensor of a chunk takes at most 64 MiB (DamBreak3D at dp 0.012 builds
+# K = 72: 119 cells per chunk); on the CPU 2**20 (4 MiB, which the caches
+# hold: a Jacobi solve of LithostaticDYN at dp 0.1 took 4.6 s against 16.2 s
+# with 2**24, on an 8-core x86 host).  A central's sum does not depend on the
+# chunking.
 PAIR_SLOTS_PER_CHUNK = 1 << 24
+CPU_PAIR_SLOTS_PER_CHUNK = 1 << 20
 
 
 def split_vec(name: str, v: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -99,7 +103,8 @@ def neighbor_apply(
         cells = torch.nonzero(aux.cell_count[:n_cells]).squeeze(1)
     cells = cells.long()
     NB = 27 * K
-    C = max(1, PAIR_SLOTS_PER_CHUNK // (K * NB))  # cells per chunk
+    slots = CPU_PAIR_SLOTS_PER_CHUNK if dev.type == "cpu" else PAIR_SLOTS_PER_CHUNK
+    C = max(1, slots // (K * NB))  # cells per chunk
 
     f32 = dict(dtype=torch.float32, device=dev)
     k_ar = torch.arange(K, device=dev)
@@ -165,4 +170,4 @@ def neighbor_apply(
 
 
 __all__ = ["neighbor_apply", "PairGeometry", "split_vec", "merge_vec",
-           "PAIR_SLOTS_PER_CHUNK"]
+           "PAIR_SLOTS_PER_CHUNK", "CPU_PAIR_SLOTS_PER_CHUNK"]

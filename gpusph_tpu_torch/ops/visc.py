@@ -115,7 +115,9 @@ def effective_viscosity(fw: SimFramework, grid: CellGrid, state: ParticleState,
                         cells: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-particle effective KINEMATIC viscosity [N] of a shear-dependent
     rheology (effectiveViscDevice).  ``effpres`` feeds the granular yield
-    stress (the Jacobi solver's output, not ported: zeros)."""
+    stress: the chunk passes the ``effpres`` extra, which the EFFPRES
+    Jacobi solve (``ops/jacobi.py:jacobi_effpres``) refreshed just before;
+    zeros when None."""
     pp = fw.pp
     rt = fw.visc.rheologytype
     f_num = fluid_num(state.info)

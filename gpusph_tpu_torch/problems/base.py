@@ -16,8 +16,12 @@ pass; ``add_plane`` declares a geometric plane boundary (`ops/planes.py`);
 (``bodies.body_velocity``), ``set_gravity_callback`` a time-dependent
 gravity; ``mass_by_density`` gives each particle of a geometry the mass of
 its initial density (the two-fluid problems), and a Grenier build carries
-the reference volume and log-volume extras.  Not ported yet: STL, HDF5 and
-XYZ geometry, SA meshes, sediment and open boundaries.
+the reference volume and log-volume extras.  ``sediment`` marks a
+geometry's particles as the granular sediment phase (FG_SEDIMENT), and a
+granular build carries the ``effpres`` extra the Jacobi solver refreshes.
+``add_stl_mesh`` and ``add_xyz_file`` read STL meshes (`geometry/stl.py`)
+and XYZ point files.  Not ported yet: HDF5 geometry, SA meshes and open
+boundaries.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..defs import ParticleType, PostProcessType, SimFlags, SPHFormulation, WriterType
+from ..defs import (ParticleType, PostProcessType, RheologyType, SimFlags, SPHFormulation,
+                    WriterType)
 from ..framework import SimFramework, setup_framework
 from ..geometry import primitives as geo
 from ..ops import eos
@@ -40,6 +45,7 @@ from ..params import Fluid, SimParams
 from ..state import (
     FG_COMPUTE_FORCE,
     FG_MOVING_BOUNDARY,
+    FG_SEDIMENT,
     ParticleState,
     empty_state,
     fluid_num,
@@ -86,11 +92,16 @@ class Geometry:
     # per particle (reference ProblemAPI_1.cc setParticleMassByDensity +
     # RTInstability.cu:207)
     mass_by_density: bool = False
+    # granular sediment phase: sets FG_SEDIMENT on the particles
+    # (reference DamBreakMobileBed.cu:178)
+    sediment: bool = False
     # rigid-body overrides (reference Object::SetMass/SetInertia): total
     # body mass and body-frame diagonal inertia; default = estimated from
     # the particle cloud
     body_mass: Optional[float] = None
     inertia: Optional[Tuple[float, float, float]] = None
+    # the triangles [n,3,3] of an STL geometry, for erase predicates
+    mesh_tris: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -128,7 +139,8 @@ class Problem:
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
-        PROBLEM_REGISTRY[cls.__name__] = cls
+        if not cls.__name__.startswith("_"):  # a shared base is not a problem
+            PROBLEM_REGISTRY[cls.__name__] = cls
 
     # --- options (reference `src/Options.h:125-165`) -----------------------
     def get_option(self, name: str, default):
@@ -228,6 +240,9 @@ class Problem:
     def set_dynamic_boundaries_layers(self, n: int):
         self.dyn_layers = n
 
+    def get_dynamic_boundaries_layers(self) -> int:
+        return self.dyn_layers
+
     def add_writer(self, writer_type=None, freq: float = 0.0):
         """Register a particle-dump writer (reference ``add_writer``,
         `src/ProblemCore.cc`).  Default/unknown types map to the VTK writer;
@@ -289,6 +304,21 @@ class Problem:
     def add_points(self, gtype, pts: np.ndarray, **kw):
         """Raw particle positions (the XYZFile/HDF5File reader analogue)."""
         return self._add(Geometry(gtype, np.asarray(pts, np.float64), **kw))
+
+    def add_stl_mesh(self, gtype, path: str, **kw):
+        """Fill the surface of an STL mesh at dp (reference ``addSTLMesh``,
+        `src/problem_api/ProblemAPI_1.h:288`); the geometry keeps the
+        triangles for erase predicates (``geometry/stl.py``)."""
+        from ..geometry.stl import fill_stl_surface, load_stl
+
+        tris = load_stl(path)
+        return self._add(Geometry(gtype, fill_stl_surface(tris, self.deltap),
+                                  mesh_tris=tris, **kw))
+
+    def add_xyz_file(self, gtype, path: str, **kw):
+        """Particle positions from the first three columns of a
+        whitespace-separated text file (reference ``XYZReader``)."""
+        return self.add_points(gtype, np.loadtxt(path, usecols=(0, 1, 2), ndmin=2), **kw)
 
     def add_plane(self, point, normal):
         self.planes.append(Plane(tuple(point), tuple(normal)))
@@ -496,6 +526,8 @@ class Problem:
                 rho_t = self.initial_density(g.points, g.fluid_idx)
             else:
                 rho_t = np.zeros(n)
+            if g.sediment:
+                flags |= FG_SEDIMENT
             pos_list.append(g.points)
             vel_list.append(np.broadcast_to(np.asarray(g.velocity, np.float64), (n, 3)))
             rho_list.append(rho_t)
@@ -532,6 +564,9 @@ class Problem:
         extras = {}
         if self.fw.flags & SimFlags.ENABLE_INTERNAL_ENERGY:
             extras["energy"] = torch.zeros((capacity,), dtype=torch.float32)
+        if self.fw.visc.rheologytype == RheologyType.GRANULAR:
+            # the effective pressure of the Jacobi solver (BUFFER_EFFPRES)
+            extras["effpres"] = torch.zeros((capacity,), dtype=torch.float32)
         state = empty_state(capacity, extras)  # a fresh state, filled in place
         f32 = torch.float32
         state.pos[:n_total] = torch.as_tensor(pos)
@@ -558,7 +593,7 @@ class Problem:
 
 
 def get_problem(name: str) -> type:
-    from . import catalog  # registers the catalog
+    from . import catalog, generic  # noqa: F401  (registers the catalog and Generic)
 
     if name in PROBLEM_REGISTRY:
         return PROBLEM_REGISTRY[name]

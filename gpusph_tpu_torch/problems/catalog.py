@@ -8,11 +8,16 @@ ProblemExample, and the problems with prescribed body motion: DamBreakGate,
 WaveTank, SolitaryWave, SlidingWedge and OffshorePile, which run on the
 forces kernel; Seiche (SPS, a gravity callback), RTInstability and Bubble
 (Grenier, two fluids) and BiFluidPoiseuille (Hu & Adams, two fluids), which
-run on the general pair path; each with the JAX package's options and
-geometry.  A gravity callback returns tensors on its time's device.  A motion callback returns
-``bodies.body_velocity`` of the chunk's time tensor.  ``NOT_PORTED`` names
-every other problem of the JAX catalog with the modules it waits for;
-``get_problem`` raises with that text.
+run on the general pair path; LithostaticLJ, LithostaticDYN and
+DamBreakMobileBed (granular rheology with the Jacobi effective pressure)
+and OilJet (Grenier, a piston) on the general path, and DEMExample (a DEM
+terrain) on the forces kernel; each with the JAX package's options and
+geometry.  A gravity callback returns tensors on its time's device.  A
+motion callback returns ``bodies.body_velocity`` of the chunk's time
+tensor.  ``problems/generic.py`` adds Generic (a scene read from an INI
+file).  ``NOT_PORTED`` names every other problem of the JAX catalog, the SA
+family, with the modules it waits for; ``get_problem`` raises with that
+text.
 """
 from __future__ import annotations
 
@@ -40,8 +45,9 @@ from ..bodies import body_velocity
 from ..defs import PostProcessType
 from ..geometry import primitives as geo
 from ..ops import eos
+from ..ops.dem import dem_height_normal, load_dem_ascii, pack_dem, unpack_dem
 from ..params import SimParams
-from ..state import is_fluid
+from ..state import FG_SEDIMENT, has_flag, is_fluid
 from .base import FillType, GeometryType, Problem
 
 
@@ -1558,24 +1564,385 @@ class BiFluidPoiseuille(Problem):
         return state.replace(rho=torch.zeros_like(state.rho))
 
 
+class _LithostaticBase(Problem):
+    """Lithostatic equilibrium: a water layer over a saturated sediment bed in
+    a 1 x 1 x 2.5 m box (reference `src/problems/Lithostatic.inc`): Hu &
+    Adams, granular rheology with the Jacobi effective-pressure solver, whose
+    converged p_eff(z) follows the lithostatic slope (rho_sed - rho_w) g
+    (`scripts/validate_lithostatic_torch.py`).  Runs on the general pair
+    path."""
+
+    boundary = BoundaryType.LJ_BOUNDARY
+
+    def __init__(self, options=None):
+        super().__init__(options)
+        dp = self.get_option("deltap", 0.05)
+        # Lithostatic.inc:44-48
+        self.hs = (math.floor(1.0 / dp) - 0.5) * dp
+        self.hw = math.floor(1.0 / dp) * dp
+        H = 2.5
+        l = 1.0
+        self.setup_framework(
+            formulation=SPHFormulation.SPH_HA,
+            kernel=KernelType.WENDLAND,
+            boundary=self.boundary,
+            rheology=RheologyType.GRANULAR,
+            turbulence_model=TurbulenceModel.LAMINAR_FLOW,
+            visc_model=ViscousModel.MORRIS,
+            visc_average=AverageOperator.HARMONIC,
+            density_diffusion=DensityDiffusionType(self.get_option("density-diffusion", 0)),
+            simparams=SimParams(
+                sfactor=2.0, dtadaptfactor=0.3, densityDiffCoeff=0.5,
+                jacobi_maxiter=self.get_option("jacobi_maxiter", 1000),
+                jacobi_backerr=3e-5, jacobi_residual=3e-5,
+            ),
+        )
+        self.set_deltap(dp)
+        g = 9.81
+        self.set_gravity(-g)
+        c0 = 10.0 * math.sqrt(g * H)
+        w = self.add_fluid(1000.0)
+        self.set_dynamic_visc(w, 1.0e-3)
+        s = self.add_fluid(1892.0)
+        self._update_fluid(s, sinpsi=0.5, cohesion=0.0, kinematic_visc=1.0e-6)
+        self._update_pp(limiting_kinvisc=1e-6)
+        self.set_equation_of_state(w, 7.0, c0)
+        self.set_equation_of_state(s, 7.0, c0)
+        tref = math.sqrt(H / g)
+        self.set_tend(self.get_option("tend", 10 * tref))
+        self.add_writer(freq=tref / 10)
+        self.set_max_fall(self.hw + self.hs)
+
+        layers = self.dyn_layers
+        wall = layers * dp
+        self.make_universe_box((-wall, -wall, -wall), (l + 2 * wall, l + 2 * wall, H + 2 * wall))
+        self.add_points(
+            GeometryType.FIXED_BOUNDARY,
+            _tank_points((0, 0, 0), (l, l, H), dp,
+                         layers if self.boundary == BoundaryType.DYN_BOUNDARY else 1))
+        # the sediment bed (fluid 1, FG_SEDIMENT), then the water above it
+        self.add_box(GeometryType.FLUID, FillType.SOLID, (dp, dp, dp),
+                     l - 2 * dp, l - 2 * dp, self.hs - dp, fluid_idx=s, sediment=True)
+        self.add_box(GeometryType.FLUID, FillType.SOLID, (dp, dp, self.hs + dp / 2),
+                     l - 2 * dp, l - 2 * dp, self.hw - dp / 2)
+        self.set_water_level(self.hs + self.hw)
+
+
+class LithostaticLJ(_LithostaticBase):
+    """Lithostatic equilibrium with Lennard-Jones walls (reference
+    `src/problems/LithostaticLJ.cu`)."""
+
+    name = "LithostaticLJ"
+    boundary = BoundaryType.LJ_BOUNDARY
+
+
+class LithostaticDYN(_LithostaticBase):
+    """Lithostatic equilibrium with dynamic-boundary walls (reference
+    `src/problems/LithostaticDYN.cu`)."""
+
+    name = "LithostaticDYN"
+    boundary = BoundaryType.DYN_BOUNDARY
+
+
+class DamBreakMobileBed(Problem):
+    """Dam break over an erodible sediment bed (reference
+    `src/problems/DamBreakMobileBed.cu`): Hu & Adams, granular rheology with
+    the Jacobi effective-pressure solver, periodic y, DYN boundaries.  Water
+    (rho0 1000) over a saturated sand bed (rho1 = phi rho0 + (1 - phi)
+    rho_grain = 1892, sinpsi 0.5, limiting kinematic viscosity 0.0961).  The
+    reference loads its geometry from HDF5 dumps (DamBreakMobileBed.cu:
+    134-139); this build makes the same scene procedurally, as the JAX
+    package does: a flume with a sediment layer of height hs topped at z = 0
+    and a water column of height hw behind a virtual dam at x = 0, scaled by
+    the ``lx/hw/hs/deltap`` options.  The effective pressure starts from the
+    lithostatic profile.  Runs on the general pair path."""
+
+    name = "DamBreakMobileBed"
+
+    def __init__(self, options=None):
+        super().__init__(options)
+        ddiff = {
+            "ferrari": DensityDiffusionType.FERRARI,
+            "brezzi": DensityDiffusionType.BREZZI,
+            "colagrossi": DensityDiffusionType.COLAGROSSI,
+        }[str(self.get_option("density_diffusion", "ferrari")).lower()]
+
+        self.setup_framework(
+            kernel=KernelType.WENDLAND,
+            formulation=SPHFormulation.SPH_HA,
+            boundary=BoundaryType.DYN_BOUNDARY,
+            periodicity=Periodicity.Y,
+            rheology=RheologyType.GRANULAR,
+            turbulence_model=TurbulenceModel.LAMINAR_FLOW,
+            density_diffusion=ddiff,
+            flags=SimFlags.ENABLE_DTADAPT | SimFlags.ENABLE_MULTIFLUID,
+            simparams=SimParams(
+                densityDiffCoeff=0.05,
+                jacobi_maxiter=int(self.get_option("jacobi_maxiter", 10000)),
+                jacobi_backerr=1e-3,
+                jacobi_residual=1e-3,
+            ),
+        )
+        self.set_deltap(self.get_option("deltap", 0.01))
+        dp = self.deltap
+        self.set_gravity(-9.81)
+        g = self.get_gravity_magnitude()
+
+        hs = self.hs = self.get_option("hs", 0.1)  # sediment height
+        hw = self.hw = self.get_option("hw", 0.35)  # water height
+        lx = self.get_option("lx", 8.2)
+        lx_dam = self.get_option("lx_dam", 3.1)  # reservoir length (x < 0)
+        ly = 31 * dp
+        lz = self.get_option("lz", 2.2)
+        self.zi = 0.0  # sediment/water interface height
+
+        rho0 = 1000.0
+        phi = 0.47
+        rhog = 2683.0
+        rho1 = phi * rho0 + (1.0 - phi) * rhog
+        c0 = 10.0 * math.sqrt(g * hw)
+        self.set_max_fall(hw)
+
+        water = self.water = self.add_fluid(rho0)
+        sed = self.sed = self.add_fluid(rho1)
+        self.set_dynamic_visc(water, rho0 * 1.0e-6)
+        self.set_kinematic_visc(sed, 1.0e-6)
+        self._update_fluid(sed, sinpsi=0.5, cohesion=0.0)
+        self._update_pp(limiting_kinvisc=self.get_option("effvisc_max", 0.0960952))
+        self.set_equation_of_state(water, 7.0, c0)
+        self.set_equation_of_state(sed, 7.0, c0)
+        self.set_tend(self.get_option("tend", 20.0))
+        self.add_writer(freq=0.0625)
+
+        layers = self.dyn_layers
+        wall = layers * dp
+        origin = (-lx_dam, 0.0, -hs - wall)
+        self.make_universe_box(origin, (lx, ly, lz))
+        # flume floor (periodic in y: no side walls) and the end walls
+        self.add_points(
+            GeometryType.FIXED_BOUNDARY,
+            geo.fill_box((origin[0] + dp / 2, dp / 2, -hs - (layers - 1) * dp),
+                         (lx - dp, ly - dp, (layers - 1) * dp), dp),
+            fluid_idx=water)
+        for x0 in (origin[0] + dp / 2, origin[0] + lx - dp / 2 - (layers - 1) * dp):
+            self.add_points(
+                GeometryType.FIXED_BOUNDARY,
+                geo.fill_box((x0, dp / 2, -hs), ((layers - 1) * dp, ly - dp, lz - wall), dp),
+                fluid_idx=water)
+        bd = wall  # the fluid keeps clear of the end walls
+        # the sediment bed over the whole flume: z in [-hs, 0)
+        self.add_points(
+            GeometryType.FLUID,
+            geo.fill_box((origin[0] + bd, dp / 2, -hs + dp / 2),
+                         (lx - 2 * bd, ly - dp, hs - dp / 2), dp),
+            fluid_idx=sed, sediment=True, mass_by_density=True)
+        # the water column behind the dam (x < 0), over the bed
+        self.add_points(
+            GeometryType.FLUID,
+            geo.fill_box((origin[0] + bd, dp / 2, dp / 2),
+                         (lx_dam - bd - dp / 2, ly - dp, hw - dp / 2), dp),
+            fluid_idx=water, mass_by_density=True)
+
+    def initial_density(self, pts, fluid_idx):
+        """Hydrostatic start (DamBreakMobileBed.cu:170-186): the water from
+        its column's top, the sediment under the whole water load plus its
+        own column."""
+        g = self.get_gravity_magnitude()
+        rho0_w = self.fw.pp.fluids[self.water].rho0
+        rho0_s = self.fw.pp.fluids[self.sed].rho0
+        z = pts[:, 2]
+        if fluid_idx == self.sed:
+            P = self.hw * g * rho0_w + (self.zi - z) * g * rho0_s
+        else:
+            P = np.maximum(0.0, (self.hw - z) * g * rho0_w)
+        rt = eos.density_from_pressure(
+            self.fw.pp, torch.as_tensor(P, dtype=torch.float32), torch.tensor(fluid_idx))
+        return rt.numpy().astype(np.float64)
+
+    def build(self, capacity=None):
+        grid, state = super().build(capacity)
+        # the effective pressure starts from the lithostatic profile
+        # (DamBreakMobileBed.cu:190-196)
+        g = self.get_gravity_magnitude()
+        drho = abs(self.fw.pp.fluids[1].rho0 - self.fw.pp.fluids[0].rho0)
+        ep = torch.clamp(drho * g * (self.deltap + self.zi - state.pos[:, 2]), min=0.0)
+        ep = torch.where(has_flag(state.info, FG_SEDIMENT), ep, 0.0)
+        return grid, state.replace(extras=dict(state.extras, effpres=ep.to(torch.float32)))
+
+
+class DEMExample(Problem):
+    """Fluid released over a DEM terrain (reference
+    `src/problems/DEMExample.cu`): LJ boundary, the DEM geometry force
+    (ENABLE_DEM, `ops/dem.py`) and four side planes; a water box of given
+    height above the terrain.  Reads a GRASS ASCII DEM with ``--dem PATH``;
+    without one it makes the JAX package's procedural half-wave hill (the
+    reference ships `half_wave0.1m.txt`, a 43.3 x 13.4 m swath rising from
+    about 0.05 m to 1 m over a half sine).  Runs on the forces kernel."""
+
+    name = "DEMExample"
+
+    def __init__(self, options=None):
+        super().__init__(options)
+        self.setup_framework(
+            kernel=KernelType.WENDLAND,
+            boundary=BoundaryType.LJ_BOUNDARY,
+            rheology=RheologyType.INVISCID,
+            turbulence_model=TurbulenceModel.ARTIFICIAL,
+            flags=SimFlags.ENABLE_DTADAPT,
+            simparams=SimParams(dtadaptfactor=0.3),
+        )
+        self.set_deltap(self.get_option("deltap", 0.05))
+        dp = self.deltap
+
+        dem_file = self.options.get("dem")
+        if dem_file:
+            dem = load_dem_ascii(dem_file)
+        else:
+            # the procedural half-wave hill (like the stock DEM, coarser)
+            west, south = 0.05, -0.2
+            east, north = 6.0, 2.0
+            cols, rows = 120, 44
+            ew = (east - west) / cols
+            ns = (north - south) / rows
+            x = west + ew * (np.arange(cols) + 0.5)
+            y = south + ns * (np.arange(rows) + 0.5)
+            X, _ = np.meshgrid(x, y)
+            h = 0.05 + 0.95 * np.clip(np.sin(
+                np.clip((X - 1.0) / 4.0, 0.0, 1.0) * math.pi / 2), 0, 1)
+            dem = pack_dem(h, x[0], y[0], ew, ns)
+        hgrid, west, south, ew, ns = unpack_dem(dem)
+        east = west + ew * (hgrid.shape[1] - 1)
+        north = south + ns * (hgrid.shape[0] - 1)
+        zmax = float(hgrid.max())
+        water_height = self.get_option("water_height", 0.8)
+
+        self.fw = dataclasses.replace(self.fw, dem=dem, flags=self.fw.flags | SimFlags.ENABLE_DEM)
+        self.set_gravity(-9.81)
+        self.set_max_fall(2.0)
+        fl = self.add_fluid(1000.0)
+        self.set_equation_of_state(fl, 7.0, 10 * math.sqrt(9.81 * 2.0))
+        self.add_writer(freq=0.1)
+        self.set_tend(self.get_option("tend", 5.0))
+
+        self.make_universe_box((west, south, 0.0), (east - west, north - south, zmax + 2.0))
+        # the water box above the terrain: filled, then erased below the
+        # terrain and within dp of it
+        pts = geo.fill_box((west + dp, south + dp, dp / 2),
+                           (east - west - 2 * dp, north - south - 2 * dp, water_height), dp)
+        z0, _ = dem_height_normal(dem, torch.as_tensor(pts, dtype=torch.float32))
+        self.add_points(GeometryType.FLUID, pts[pts[:, 2] > z0.numpy() + dp])
+        # the side walls as planes (addDEMPlanes)
+        self.add_plane((west, south, 0), (1, 0, 0))
+        self.add_plane((east, north, 0), (-1, 0, 0))
+        self.add_plane((west, south, 0), (0, 1, 0))
+        self.add_plane((east, north, 0), (0, -1, 0))
+        self.set_water_level(water_height)
+
+
+class OilJet(Problem):
+    """Oil jet: a piston pushes fluid up a submerged pipe into a water basin,
+    Grenier's formulation (reference `src/problems/OilJet.cu:43-152`, the
+    piston's law in ``moving_bodies_callback`` :139-152).  Runs on the
+    general pair path.
+
+    The JAX package's scene does not open its pipe: its erase of the basin
+    floor over the pipe acts on fluid only, so the floor caps the pipe; the
+    pipe's wall is capped at both ends, its caps on the very positions of
+    the pipe's fluid, and the piston lies dp/4 from both.  Its basin has no
+    side walls, its floor and water filled dp/2 in from the domain's x and
+    y faces as for a periodic axis, but it is not periodic: the water pours
+    off the floor's edges.  The port builds the scene the reference
+    intends (recorded decision): periodic in x and y, the floor's particles
+    over the pipe erased, the pipe's wall rising through the floor to the
+    basin with a bottom cap and no top cap, the piston filling the bore
+    above the bottom cap and the bore's fluid the rest up to the basin, all
+    on the basin's lattice.
+    """
+
+    name = "OilJet"
+
+    def __init__(self, options=None):
+        super().__init__(options)
+        layers = 5
+        water_level = 2.0
+        pipe_length = 2.0
+        inner_diam = 0.4
+        lx = ly = 2.0
+
+        self.setup_framework(
+            formulation=SPHFormulation.SPH_GRENIER,
+            kernel=KernelType.WENDLAND,
+            boundary=BoundaryType.DYN_BOUNDARY,
+            rheology=RheologyType.NEWTONIAN,
+            visc_model=ViscousModel.MORRIS,
+            periodicity=Periodicity.XY,
+            simparams=SimParams(dtadaptfactor=0.2),
+        )
+        self.set_dynamic_boundaries_layers(layers)
+        self.set_deltap(self.get_option("deltap", 0.05))
+        dp = self.deltap
+        self.set_timestep(0.00013)
+        self.set_gravity(-9.81)
+        self.set_max_fall(water_level)
+        self.add_fluid(1000.0)
+        self.set_equation_of_state(0, 7.0, 10.0)
+        self.set_kinematic_visc(0, 1.0e-6)
+        self.set_tend(self.get_option("tend", 2.0))
+        self.add_writer(freq=0.01)
+
+        lz = water_level + pipe_length + layers * dp
+        lm1 = layers - 1
+        self.make_universe_box((0.0, 0.0, -pipe_length - layers * dp), (lx, ly, 1.1 * lz))
+
+        self.add_box(GeometryType.FLUID, FillType.SOLID, (dp / 2, dp / 2, dp / 2),
+                     lx - dp, ly - dp, water_level - dp)
+        floor = self.add_box(GeometryType.FIXED_BOUNDARY, FillType.SOLID,
+                             (dp / 2, dp / 2, -(lm1 + 0.5) * dp), lx - dp, ly - dp, lm1 * dp)
+        # the pipe on the basin's lattice: its fluid and piston fill the
+        # columns within the bore's radius, its wall the columns from there
+        # out to lm1 * dp beyond it
+        bore = inner_diam / 2
+        outer = bore + lm1 * dp
+
+        def columns(z0, z1, r0, r1):
+            pts = geo.fill_box((dp / 2, dp / 2, z0), (lx - dp, ly - dp, z1 - z0), dp)
+            r = np.hypot(pts[:, 0] - lx / 2, pts[:, 1] - ly / 2)
+            return pts[(r >= r0) & (r < r1)]
+
+        # erase the basin floor where the pipe passes through
+        self.geometries[floor].points = geo.erase_inside(
+            self.geometries[floor].points,
+            lambda p: np.hypot(p[:, 0] - lx / 2, p[:, 1] - ly / 2) < outer)
+        # the wall from the pipe's bottom up to the floor's top layer, with a
+        # bottom cap of `layers` layers under the piston and no top cap
+        bottom = -pipe_length - lm1 * dp - dp / 2
+        piston_base = bottom + layers * dp
+        fluid_base = piston_base + layers * dp
+        self.add_points(GeometryType.FIXED_BOUNDARY, np.concatenate([
+            columns(bottom, -dp / 2, bore, outer),
+            columns(bottom, piston_base - dp, 0.0, bore)]))
+        self.add_points(GeometryType.FLUID, columns(fluid_base, -dp / 2, 0.0, bore))
+        piston = self.add_points(GeometryType.MOVING_BODY,
+                                 columns(piston_base, piston_base + lm1 * dp, 0.0, bore))
+        piston_vel = 1.0
+
+        def piston_motion(t):
+            return body_velocity(t, (0.0, 0.0, piston_vel))
+
+        self.set_body_motion(piston, piston_motion)
+        self.set_water_level(water_level)
+
+
 # the other problems of the JAX package's catalog, and what each waits for
-_GRANULAR = "granular rheology (the Jacobi effective pressure, ops/jacobi.py)"
 NOT_PORTED = {
-    "DEMExample": "DEM terrain (ops/dem.py)",
-    "OilJet": ("its scene (its Grenier physics and prescribed piston run on the "
-               "general pair path)"),
-    "DamBreakMobileBed": _GRANULAR,
-    "LithostaticLJ": _GRANULAR,
-    "LithostaticDYN": _GRANULAR,
-    "StillWaterSA": "SA boundaries",
-    "StillWaterRepackSA": "SA boundaries",
-    "ChannelIO": "SA boundaries and open boundaries",
-    "CompleteSaExample": "SA boundaries and open boundaries",
-    "Spheric2SA": "SA boundaries and the k-epsilon model",
-    "TurbulentPoiseuilleFlowSA": "SA boundaries and the k-epsilon model",
-    "LithostaticSA": "SA boundaries and " + _GRANULAR,
-    "BiFluidPoiseuilleSA": "SA boundaries",
-    "Generic": "problems/generic.py (problems read from an .ini file)",
+    "StillWaterSA": "SA boundaries (ROADMAP item 8)",
+    "StillWaterRepackSA": "SA boundaries (ROADMAP item 8)",
+    "LithostaticSA": "SA boundaries (ROADMAP item 8)",
+    "BiFluidPoiseuilleSA": "SA boundaries (ROADMAP item 8)",
+    "ChannelIO": "SA boundaries and open boundaries (ROADMAP items 8-9)",
+    "CompleteSaExample": "SA boundaries and open boundaries (ROADMAP items 8-9)",
+    "Spheric2SA": "SA boundaries and the k-epsilon model (ROADMAP items 8-9)",
+    "TurbulentPoiseuilleFlowSA": "SA boundaries and the k-epsilon model (ROADMAP items 8-9)",
 }
 
 
@@ -1583,4 +1950,5 @@ __all__ = ["NOT_PORTED", "DamBreak3D", "Poiseuille", "StillWater", "LockExchange
            "BuoyancyTest", "Spheric2", "AccuracyTest", "Objects", "DynBoundsExample",
            "ProblemExample", "PoiseuillePapanastasiou", "DamBreakGate", "WaveTank",
            "SolitaryWave", "OffshorePile", "SlidingWedge", "Seiche", "RTInstability",
-           "Bubble", "BiFluidPoiseuille"]
+           "Bubble", "BiFluidPoiseuille", "LithostaticLJ", "LithostaticDYN",
+           "DamBreakMobileBed", "DEMExample", "OilJet"]

@@ -85,9 +85,21 @@ CASES = {
     "planes": dict(planes=True, turb="LAMINAR_FLOW", kinvisc=1e-4),
     "gcallback": dict(gcallback=True, diffusion="COLAGROSSI", xi=0.1),
     "periodic_fast_axis": dict(periodic="XYZ", turb="LAMINAR_FLOW", kinvisc=1e-4),
+    # the DEM terrain's force after the planes
+    "dem": dict(dem=True, turb="LAMINAR_FLOW", kinvisc=1e-4),
 }
 
 PLANES = (((0.0, 0.0, 0.02), (0.0, 0.0, 1.0)), ((0.28, 0.0, 0.0), (-1.0, 0.0, 1.0)))
+
+
+def _terrain():
+    """A seeded terrain under the scene's lower layers (0.01-0.06 m), packed
+    alike by both packages."""
+    from gpusph_tpu_torch.ops.dem import pack_dem
+
+    rng = np.random.default_rng(SEED + 2)
+    h = 0.01 + 0.05 * rng.uniform(size=(8, 9))
+    return pack_dem(h, 0.0, 0.0, BOX / 8, BOX / 7)
 T_CALLBACK = 0.7
 
 
@@ -104,7 +116,7 @@ def framework(m, *, boundary="DYN_BOUNDARY", turb="ARTIFICIAL", kinvisc=0.0,
               diffusion="NONE", xi=0.0, flags=None, formulation="SPH_F1",
               visc_model="MORRIS", avg="ARITHMETIC", bulk_visc=0.0, two_fluids=False,
               epsinterface=0.0, moving=False, planes=False, gcallback=False,
-              periodic="NONE", pp=None, **_):
+              periodic="NONE", pp=None, dem=False, **_):
     """A framework of package ``m`` (``gpusph_tpu`` or ``gpusph_tpu_torch``)."""
     E = m.defs
     f = E.SimFlags.ENABLE_DTADAPT
@@ -116,6 +128,8 @@ def framework(m, *, boundary="DYN_BOUNDARY", turb="ARTIFICIAL", kinvisc=0.0,
         f |= E.SimFlags.ENABLE_MOVING_BODIES
     if planes:
         f |= E.SimFlags.ENABLE_PLANES
+    if dem:
+        f |= E.SimFlags.ENABLE_DEM
     rhos = (1000.0, 1100.0) if two_fluids else (1000.0,)
     c0 = 25.0 if two_fluids else 30.0
     fw = m.setup_framework(
@@ -137,7 +151,8 @@ def framework(m, *, boundary="DYN_BOUNDARY", turb="ARTIFICIAL", kinvisc=0.0,
             **(pp or {})),
     )
     fw = dataclasses.replace(fw, planes=PLANES if planes else (),
-                             gcallback=_gcallback(m) if gcallback else None)
+                             gcallback=_gcallback(m) if gcallback else None,
+                             dem=_terrain() if dem else None)
     return fw.finalize()
 
 
@@ -232,6 +247,12 @@ def test_general_pass_matches_jax(name):
         assert np.abs(np.asarray(want.xsph)[act]).max() > 0
     if name == "internal_energy":
         assert np.abs(np.asarray(want.DEDt)[act]).max() > 0
+    if name == "dem":
+        # the terrain pushes some fluid particles: the pass differs from one
+        # without it
+        plain = compute_forces(dataclasses.replace(tfw, dem=None), tgrid, ts,
+                               build_cells(tgrid, ts)[1])
+        assert np.abs(plain.DvDt.numpy()[act] - got.DvDt.numpy()[act]).max() > 1.0
 
 
 @pytest.mark.parametrize("name", ["dyn_artvisc", "lj", "laminar", "colagrossi",
@@ -266,7 +287,8 @@ def test_general_pass_matches_brute_force(name):
 
 
 def test_unported_branches_raise():
-    """SA boundaries, k-epsilon and DEM terrain name their slices."""
+    """SA boundaries and k-epsilon name their slices (the DEM terrain runs:
+    the "dem" case above)."""
     fw = framework(T)
     grid = make_grid((0, 0, 0), (BOX,) * 3, fw.influenceradius)
     st, aux = build_cells(grid, state_from_numpy(scene({})[0]))
@@ -274,7 +296,6 @@ def test_unported_branches_raise():
     for bad, match in (
             (sa, "SA boundaries"),
             (dataclasses.replace(sa, visc=dataclasses.replace(
-                fw.visc, turbmodel=T.defs.TurbulenceModel.KEPSILON)), "k-epsilon"),
-            (dataclasses.replace(fw, dem=((0.0,),)), "DEM terrain")):
+                fw.visc, turbmodel=T.defs.TurbulenceModel.KEPSILON)), "k-epsilon")):
         with pytest.raises(NotImplementedError, match=match):
             compute_forces(bad, grid, st, aux)

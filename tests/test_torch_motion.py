@@ -65,16 +65,17 @@ def test_motion_callbacks_match():
 
 
 def test_chunk_refuses_the_next_slices():
-    """The granular rheology waits for the Jacobi solver; a gravity callback
-    and SPS build on the general pair path, and so does Seiche."""
+    """Open boundaries wait for their slice; a gravity callback, SPS and the
+    granular rheology build on the general pair path, and so does
+    Seiche."""
     p = get_problem("Poiseuille")({"ppH": 4})
     grid, _ = p.build()
     fw = p.fw.finalize()
-    with pytest.raises(NotImplementedError, match="granular"):
-        make_sim_chunk(dataclasses.replace(fw, visc=dataclasses.replace(
-            fw.visc, rheologytype=RheologyType.GRANULAR)), grid)
+    with pytest.raises(NotImplementedError, match="open boundaries"):
+        make_sim_chunk(dataclasses.replace(fw, io=((0.0,),)), grid)
     for change in (dict(gcallback=lambda t: (0.0, 0.0, -9.81)),
-                   dict(visc=dataclasses.replace(fw.visc, turbmodel=TurbulenceModel.SPS))):
+                   dict(visc=dataclasses.replace(fw.visc, turbmodel=TurbulenceModel.SPS)),
+                   dict(visc=dataclasses.replace(fw.visc, rheologytype=RheologyType.GRANULAR))):
         make_sim_chunk(dataclasses.replace(fw, **change), grid)
     for name, opts in (("PoiseuillePapanastasiou", {"ppH": 4}),
                        ("DamBreak3D", {"deltap": 0.1, "density-diffusion": 0}),
