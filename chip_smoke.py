@@ -57,8 +57,8 @@ Phases, one line each; any failure exits non-zero and prints no ``ok`` line:
    ``GENERAL_CPU``; the general path against the forces kernel on
    DamBreak3D at dp 0.012; the JAX goldens of RTInstability and Bubble;
 10. the granular Jacobi solver, the DEM terrain, OilJet and Generic:
-   LithostaticLJ and LithostaticDYN at their default dp (a warm-up and a
-   timed chunk, phase 4's checks, no forces-kernel launch, the Jacobi
+   LithostaticLJ at its default dp and LithostaticDYN at dp 0.1 (a warm-up
+   and a timed chunk, phase 4's checks, no forces-kernel launch, the Jacobi
    iterations of every solve and ms per iteration; the effective pressure
    after the cold solve linear in depth, its slope printed beside
    (rho_sed - rho_w) g, and the cold solve's slope at dp 0.1 within 1% of
@@ -73,9 +73,20 @@ Phases, one line each; any failure exits non-zero and prints no ``ok`` line:
    on the general path); Generic, an INI file with an STL obstacle written
    into a temporary directory, through the CLI on the card; card vs CPU at
    reduced widths: the surface flags exact, a fixed-count Jacobi solve,
-   the DEM force.
+   the DEM force;
+11. SA walls on the gamma-quadrature path (``ops/sa.py``): StillWaterSA
+   ``--density_sum 0`` at its default width (ppH 24), a warm-up and a timed
+   chunk, phase 9's checks (no forces-kernel launch, ``n_active``
+   conserved, a finite state, dt > 1e-10) and no fluid particle outside the
+   SA box; the hydrostatic error over the central column, printed; the ms of
+   the gamma, wall-condition and SA general passes on the final state, with
+   their pair slots and fluid-segment pairs; at ppH 10 the flat-wall
+   oracles of ``tests/test_sa.py`` on the card, and the gamma, the wall
+   density and one SA general pass card vs CPU.
 
-Then one JSON line describing each kernel, and last the ``ok`` line.
+Each phase prints its host seconds (``[time]``), and the script its total
+before the kernels' line.  Then one JSON line describing each kernel, and
+last the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -87,6 +98,7 @@ import time
 
 import numpy as np
 
+SCRIPT_T0 = time.perf_counter()  # the script's total counts from here
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3 bandwidth
@@ -972,8 +984,11 @@ def general_phase(dev, card, dam):
 # phase 10: the granular Jacobi solver (LithostaticLJ, LithostaticDYN and
 # DamBreakMobileBed on the general path), the DEM terrain (DEMExample on the
 # forces kernel), OilJet (Grenier and a piston, general path) and Generic
-# (an INI file through the CLI, forces kernel)
-LITHOSTATIC = {"LithostaticLJ": {}, "LithostaticDYN": {}}
+# (an INI file through the CLI, forces kernel).  LithostaticLJ runs at its
+# default dp 0.05, LithostaticDYN at dp 0.1: the cold EFFPRES solve of a
+# dp-0.05 warm-up chunk takes 841-918 iterations, about a minute, and one
+# such solve is enough to time the Jacobi iteration at the default width
+LITHOSTATIC = {"LithostaticLJ": {}, "LithostaticDYN": {"deltap": 0.1}}
 # the effective pressure after the first (cold) solve from zero: linear in
 # depth (R^2 of the fit over the interior sediment at least SLOPE_MIN_R2).
 # Its slope is not (rho_sed - rho_w) g, and the JAX package's solver gives
@@ -1647,8 +1662,264 @@ def output_phase(dev, card):
         f"{repack_ms:.6g} ms per repack chunk [{card}]")
 
 
+# phase 11: SA walls on the gamma-quadrature path.  StillWaterSA
+# --density_sum 0 at its default width (ppH 24, 24,794 particles): a warm-up
+# chunk from the build and a timed chunk; then, at ppH 10, the flat-wall
+# oracles of tests/test_sa.py (copied below) and card vs CPU
+SA_OPTS = {"density_sum": 0}
+SA_CPU = {"density_sum": 0, "ppH": 10}
+SA_H = 0.5  # StillWaterSA's water_height and side
+SA_SIDE = 0.5
+# the oracles' bars (tests/test_sa.py): gamma within SA_GAMMA_ATOL of the
+# half-space integral; |grad gamma| along +z within SA_GRAD_RTOL of the
+# plane integral of W (x max(ref, 1)), its tangential part under
+# SA_TANGENT x ref + 1e-3, and zero (under 1e-5) beyond 2h
+SA_GAMMA_ATOL = 5e-3
+SA_GRAD_RTOL = 0.03
+SA_TANGENT = 0.05
+# card vs CPU on the same sorted ppH-10 state (its fluid at seeded
+# velocities), each pass on both devices from the same inputs: (rtol, atol
+# as a fraction of max|CPU|, absolute floor)
+SA_CARD_CPU = {"gamma": (0.0, 0.0, 1e-6), "grad gamma": (0.0, 2e-3, 0.0),
+               "wall rho": (0.0, 0.0, 2.0 ** -22), "DvDt": (0.0, 5e-4, 0.0),
+               "DrDt": (0.0, 5e-4, 0.0)}
+
+
+def _wendland_w(r, h):
+    q = r / h
+    val = 21.0 / (16.0 * np.pi * h**3) * (1.0 - 0.5 * q) ** 4 * (1.0 + 2.0 * q)
+    return np.where(q < 2.0, val, 0.0)
+
+
+def halfspace_gamma(z, h):
+    """1 - the integral of W over the half-space beyond a wall at distance z
+    (numeric oracle of tests/test_sa.py)."""
+    zz = np.linspace(-2.0 * h, 2.0 * h, 400)
+    rr = np.linspace(0.0, 2.0 * h, 400)
+    Z, R = np.meshgrid(zz, rr, indexing="ij")
+    W = _wendland_w(np.sqrt(Z**2 + R**2), h)
+    return 1.0 - float((W * (Z < -z) * 2.0 * np.pi * R * (rr[1] - rr[0])
+                        * (zz[1] - zz[0])).sum())
+
+
+def plane_integral_w(z, h):
+    """The integral of W over a wall plane at distance z: the exact flat-wall
+    |grad gamma| (tests/test_sa.py)."""
+    rr = np.linspace(0.0, 2.0 * h, 2000)
+    W = _wendland_w(np.sqrt(z**2 + rr**2), h)
+    return float((W * 2.0 * np.pi * rr * (rr[1] - rr[0])).sum())
+
+
+def sa_phase(dev, card):
+    """Phase 11 (see the docstring)."""
+    import torch
+
+    from gpusph_tpu_torch.bodies import init_bodies_state
+    from gpusph_tpu_torch.integrator import make_sim_chunk
+    from gpusph_tpu_torch.ops import eos, forces_kernel
+    from gpusph_tpu_torch.ops.forces import compute_forces
+    from gpusph_tpu_torch.ops.neighbors import build_cells
+    from gpusph_tpu_torch.ops.pair import neighbor_apply, split_vec
+    from gpusph_tpu_torch.ops.sa import compute_gamma, impose_boundary_conditions
+    from gpusph_tpu_torch.problems.base import get_problem
+    from gpusph_tpu_torch.state import fluid_num, is_fluid
+
+    phase_t0 = time.perf_counter()
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def sorted_inputs(grid, st):
+        sts, aux = build_cells(grid, st)
+        return sts, aux, torch.nonzero(aux.cell_count[:grid.n_cells]).squeeze(1)
+
+    # --- StillWaterSA at its default width -----------------------------------------
+    t0 = time.perf_counter()
+    prob = get_problem("StillWaterSA")(dict(SA_OPTS))
+    grid, state0 = prob.build()
+    fw = prob.fw.finalize()
+    build_s = time.perf_counter() - t0
+    dp, steps, K = fw.sp.deltap, fw.sp.buildneibsfreq, fw.sp.max_parts_per_cell
+    n0 = int(state0.count_active())
+    chunk = make_sim_chunk(fw, grid)
+    st0 = state0.to(dev)
+    dt0 = 0.1 * fw.sp.slength / max(f.c0 for f in fw.pp.fluids)
+    args = (st0, torch.tensor(dt0, **f32), torch.tensor(0.0, **f32), 0,
+            init_bodies_state((), st0))
+    forces_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = chunk(*args)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    out = chunk(*warm[:5])
+    end.record()
+    torch.cuda.synchronize()
+    chunk_ms = begin.elapsed_time(end)
+    launches = forces_kernel.launches
+    st, dt1 = out[0], float(out[1])
+    n1 = int(st.count_active())
+    finite = all(bool(torch.isfinite(t).all()) for t in (st.pos, st.vel, st.rho))
+    fl = (st.active & is_fluid(st.info)).cpu().numpy()
+    pos = st.pos.cpu().numpy()[fl]
+    top = SA_H + 6 * dp
+    outside = int(((pos[:, :2] < 0.0) | (pos[:, :2] > SA_SIDE)).any(1).sum()
+                  + ((pos[:, 2] < 0.0) | (pos[:, 2] > top)).sum())
+    # the hydrostatic error over the central column, a figure
+    press = eos.pressure(fw.pp, st.rho, fluid_num(st.info)).cpu().numpy()[fl]
+    rho0, g = fw.pp.fluids[0].rho0, abs(fw.pp.gravity[2])
+    ctr = (np.abs(pos[:, 0] - SA_SIDE / 2) < 0.08) & (np.abs(pos[:, 1] - SA_SIDE / 2) < 0.08)
+    hydro = float(np.mean(np.abs(press[ctr] - rho0 * g * (SA_H - pos[ctr, 2])))
+                  / (rho0 * g * SA_H))
+    say(f"[11 sa] StillWaterSA --density_sum 0 at ppH {round(SA_H / dp)}: {n0} particles "
+        f"(build {build_s:.3f} s, grid {'x'.join(map(str, grid.ncells))}, K {K}); warm-up "
+        f"chunk {warm_s:.3f} s (host clock), timed chunk {chunk_ms:.6g} ms (CUDA events) = "
+        f"{n0 * steps / chunk_ms * 1e3:.6g} particle-steps/s; forces-kernel launches "
+        f"{launches}; n_active {n0} -> {n1}; finite {finite}; dt {dt1:.6g}; t "
+        f"{float(out[2]):.6g}; fluid particles outside the SA box [0, {SA_SIDE}]^2 x [0, "
+        f"{top:.6g}]: {outside}; hydrostatic error mean |p - rho g (H - z)| / (rho g H) over "
+        f"{int(ctr.sum())} central particles {hydro:.6g} (a figure, not a gate) [{card}]")
+    if launches != 0:
+        fail(f"StillWaterSA: the forces kernel launched {launches} times on the general path")
+    if n1 != n0 or not finite or not dt1 > 1e-10 or outside:
+        fail(f"StillWaterSA: n_active {n0} -> {n1}, finite {finite}, dt {dt1}, "
+             f"{outside} fluid particles outside the box")
+
+    # the three passes of a forces phase on the final state, and their pairs
+    sts, aux, cells = sorted_inputs(grid, st)
+    slots = int(cells.shape[0]) * K * 27 * K
+    gamma, _ = compute_gamma(fw, grid, sts, aux, cells=cells, with_grad=False)
+    walled = impose_boundary_conditions(fw, grid, sts, aux, gamma, cells=cells)
+    gamma_ms = cuda_ms(lambda: compute_gamma(fw, grid, sts, aux, cells=cells,
+                                             with_grad=False), 3, warmup=1)
+    bc_ms = cuda_ms(lambda: impose_boundary_conditions(fw, grid, sts, aux, gamma,
+                                                       cells=cells), 3, warmup=1)
+    pass_ms = cuda_ms(lambda: compute_forces(fw, grid, walled, aux, dt=out[1], cells=cells,
+                                             gamma=gamma), 3, warmup=1)
+    fields = dict(**split_vec("pos", sts.pos), ptype=sts.info & 7)
+    seg = neighbor_apply(grid, aux, fields, lambda c, n, g: {
+        "n": (g.mask & (c["ptype"] == 0) & (n["ptype"] == 1)).float()},
+        max_parts_per_cell=K, influenceradius=fw.sp.influenceradius + 0.5 * dp,
+        cells=cells)["n"]
+    seg_pairs = int(seg.sum())
+    phase_ms = gamma_ms + bc_ms + pass_ms
+    say(f"[11 passes] StillWaterSA ppH {round(SA_H / dp)} final state, {int(cells.shape[0])} "
+        f"occupied cells, {slots} pair slots per pass, {seg_pairs} fluid-segment pairs: gamma "
+        f"pass {gamma_ms:.6g} ms ({gamma_ms * 1e6 / slots:.4g} ns per slot), wall-condition "
+        f"pass {bc_ms:.6g} ms ({bc_ms * 1e6 / slots:.4g} ns per slot), SA general pass "
+        f"{pass_ms:.6g} ms ({pass_ms * 1e6 / slots:.4g} ns per slot), {phase_ms:.6g} ms a "
+        f"forces phase x {2 * steps} per chunk (CUDA events, 3 each) [{card}]")
+    # where a forces phase's device time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g_, _ = compute_gamma(fw, grid, sts, aux, cells=cells, with_grad=False)
+        w_ = impose_boundary_conditions(fw, grid, sts, aux, g_, cells=cells)
+        compute_forces(fw, grid, w_, aux, dt=out[1], cells=cells, gamma=g_)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:6]
+    say(f"[11 trace] one forces phase under torch.profiler: wall {prof_ms:.6g} ms, device "
+        f"busy {busy_ms:.6g} ms (share {busy_ms / prof_ms:.4f}); top device time: "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.4g} ms x{e.count}"
+                    for e in top) + f" [{card}]")
+    del warm, out, st, sts, aux, walled, w_, g_
+    torch.cuda.empty_cache()
+
+    # --- the flat-wall oracles at ppH 10, on the card ------------------------------
+    prob = get_problem("StillWaterSA")(dict(SA_CPU))
+    grid, state0 = prob.build()
+    fw = prob.fw.finalize()
+    h = fw.sp.slength
+    sts, aux, cells = sorted_inputs(grid, state0.to(dev))
+    gam, ggam = (a.cpu().numpy() for a in compute_gamma(fw, grid, sts, aux, cells=cells))
+    pos = sts.pos.cpu().numpy()
+    sel = (((sts.info & 7) == 0).cpu().numpy() & (np.abs(pos[:, 0] - SA_SIDE / 2) < 0.1)
+           & (np.abs(pos[:, 1] - SA_SIDE / 2) < 0.1))
+    z, gs, gg = pos[sel, 2], gam[sel], ggam[sel]
+    near = z < 1.9 * h
+    gamma_err = max(abs(gi - halfspace_gamma(zi, h)) for zi, gi in zip(z[near], gs[near]))
+    mid = (z < 1.5 * h) & (z > 0.5 * h)
+    grad_err = tan_err = 0.0
+    grad_ok = True
+    for zi, gv in zip(z[mid], gg[mid]):
+        ref = plane_integral_w(zi, h)
+        grad_err = max(grad_err, abs(gv[2] - ref) / max(ref, 1.0))
+        tan_err = max(tan_err, max(abs(gv[0]), abs(gv[1])) / ref)
+        grad_ok &= bool(abs(gv[0]) < SA_TANGENT * ref + 1e-3
+                        and abs(gv[1]) < SA_TANGENT * ref + 1e-3)
+    far = float(np.abs(gg[z > 2.1 * h]).max())
+    say(f"[11 oracle] StillWaterSA ppH 10 on the card, {int(sel.sum())} fluid particles over "
+        f"the floor's centre: gamma against the half-space integral of W, max error "
+        f"{gamma_err:.3g} over {int(near.sum())} particles (bar {SA_GAMMA_ATOL}); grad gamma "
+        f"along +z against the plane integral of W, max error {grad_err:.3g} x max(ref, 1) "
+        f"over {int(mid.sum())} particles (bar {SA_GRAD_RTOL}), tangential at most "
+        f"{tan_err:.3g} x ref (bar {SA_TANGENT} x ref + 1e-3); beyond 2h {far:.3g} (bar "
+        f"1e-5) [{card}]")
+    if not (gamma_err < SA_GAMMA_ATOL and grad_err < SA_GRAD_RTOL and grad_ok
+            and far < 1e-5 and near.sum() and mid.sum()):
+        fail("StillWaterSA: gamma or grad gamma misses the flat-wall oracle on the card")
+
+    # --- card vs CPU at ppH 10 ------------------------------------------------------
+    rng = np.random.default_rng(11)
+    fluid0 = ((state0.info & 7) == 0).numpy()
+    vel = state0.vel.numpy().copy()
+    vel[fluid0] = rng.normal(0.0, 0.05, size=(int(fluid0.sum()), 3))
+    moving = state0.replace(vel=torch.as_tensor(vel, dtype=torch.float32))
+    sts, aux, cells = sorted_inputs(grid, moving.to(dev))
+    cpu_st, cpu_aux, cpu_cells = sorted_inputs(grid, moving)
+    if not torch.equal(sts.id.cpu(), cpu_st.id):
+        fail("StillWaterSA: the card and the CPU sort the particles differently")
+    t0 = time.perf_counter()
+    rows = {}
+    ga, gga = compute_gamma(fw, grid, sts, aux, cells=cells)
+    gb, ggb = compute_gamma(fw, grid, cpu_st, cpu_aux, cells=cpu_cells)
+    rows["gamma"] = (ga.cpu().numpy(), gb.numpy())
+    rows["grad gamma"] = (gga.cpu().numpy(), ggb.numpy())
+    # each later pass from the card's inputs on both devices
+    wa = impose_boundary_conditions(fw, grid, sts, aux, ga, cells=cells)
+    wb = impose_boundary_conditions(fw, grid, cpu_st, cpu_aux, ga.cpu(), cells=cpu_cells)
+    wall = ((sts.info & 7) != 0).cpu().numpy()
+    rows["wall rho"] = (wa.rho.cpu().numpy()[wall], wb.rho.numpy()[wall])
+    fa = compute_forces(fw, grid, wa, aux, cells=cells, gamma=ga)
+    fb = compute_forces(fw, grid, cpu_st.replace(rho=wa.rho.cpu()), cpu_aux, cells=cpu_cells,
+                        gamma=ga.cpu())
+    act = sts.active.cpu().numpy()
+    rows["DvDt"] = (fa.DvDt.cpu().numpy()[act], fb.DvDt.numpy()[act])
+    rows["DrDt"] = (fa.DrDt.cpu().numpy()[act], fb.DrDt.numpy()[act])
+    both_s = time.perf_counter() - t0
+    report, ok = [], True
+    for k, (x, y) in rows.items():
+        rtol, frac, floor = SA_CARD_CPU[k]
+        good, err, scale = held(x, y, rtol, frac, floor)
+        ok &= good
+        report.append(f"{k} {err:.3g} of {scale:.3g}{'' if good else ' MISMATCH'}")
+    say(f"[11 card-cpu] StillWaterSA ppH 10 ({int(sts.count_active())} particles, fluid at "
+        f"seeded velocities): card vs CPU max abs diff {', '.join(report)} (tolerances "
+        f"{json.dumps(SA_CARD_CPU)} as rtol, atol x max, atol floor); both devices' passes "
+        f"took {both_s:.3f} s; phase 11 took {time.perf_counter() - phase_t0:.1f} s (host "
+        f"clock) [{card}]")
+    if not ok:
+        fail("StillWaterSA: the SA passes on the card disagree with the CPU")
+
+
 def main() -> int:
     import torch
+
+    script_t0 = SCRIPT_T0
+    phase_s = []  # (phase, host seconds)
+
+    def phase_done(label):
+        """Print and record the host seconds since the previous phase ended."""
+        now = time.perf_counter()
+        s = now - (script_t0 + sum(t for _, t in phase_s))
+        phase_s.append((label, s))
+        say(f"[time] phase {label}: {s:.1f} s (host clock)")
 
     # --- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1686,6 +1957,8 @@ def main() -> int:
         say(f"  {ln.strip()}")
     say("kernels: forces (cuda, gpusph_tpu_torch/csrc/forces.cu)")
 
+    phase_done("1-2")
+
     # --- 3. kernel vs plain version -------------------------------------------
     dp_small, configs = small_configs()
     for name, fw in configs.items():
@@ -1718,6 +1991,8 @@ def main() -> int:
         f"{'bit-identical' if same else 'DIFFERENT'}")
     if not same:
         fail("two launches of the forces kernel on the same inputs differ")
+
+    phase_done("3")
 
     # --- 4. main path at full size --------------------------------------------
     prob = Dam({"deltap": 0.012})
@@ -1813,6 +2088,8 @@ def main() -> int:
         f"against {work['body_slotwise']} slot by slot "
         f"({comp['slotwise_per_warp_tile']:.6g} per (warp, tile))")
 
+    phase_done("4")
+
     # --- 5. golden fingerprint --------------------------------------------------
     drift, limit, dt_ref, dt_now = golden_drift("DamBreak3D", {"deltap": 0.04, "max_ppc": 64},
                                                 100)
@@ -1822,20 +2099,34 @@ def main() -> int:
     if not drift["pos"] <= limit:
         fail("golden: pos drift above 1e-3 x max|pos|")
 
+    phase_done("5")
+
     # --- 6. output path --------------------------------------------------------
     output_phase(dev, card)
+    phase_done("6")
 
     # --- 7. the catalog ----------------------------------------------------------
     catalog_phase(card)
+    phase_done("7")
 
     # --- 8. body motion, filters, effective viscosity ----------------------------
     slice_phase(dev, card)
+    phase_done("8")
 
     # --- 9. the general pair path --------------------------------------------------
     general_phase(dev, card, (dam_fw, dam_grid, st2))
+    phase_done("9")
 
     # --- 10. granular Jacobi solver, DEM terrain, OilJet, Generic ---------------------
     granular_phase(dev, card)
+    phase_done("10")
+
+    # --- 11. SA walls on the gamma-quadrature path -----------------------------------
+    sa_phase(dev, card)
+    phase_done("11")
+    say("[time] " + ", ".join(f"phase {k} {t:.1f} s" for k, t in phase_s)
+        + f"; total {time.perf_counter() - script_t0:.1f} s (host clock, nvcc included) "
+        f"[{card}]")
 
     say(json.dumps({"kernels": [{
         "name": "forces",

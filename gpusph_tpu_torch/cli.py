@@ -39,8 +39,9 @@ StillWater, LockExchange, OpenChannel, BuoyancyTest, Spheric2,
 AccuracyTest, Objects, DynBoundsExample, ProblemExample, DamBreakGate,
 WaveTank, SolitaryWave, SlidingWedge, OffshorePile, Seiche, RTInstability,
 Bubble, BiFluidPoiseuille, LithostaticLJ, LithostaticDYN,
-DamBreakMobileBed, DEMExample, OilJet) and Generic
-(``problems/generic.py``); the SA problems wait for their slice.  Not
+DamBreakMobileBed, DEMExample, OilJet, StillWaterSA with ``--density_sum
+0``) and Generic (``problems/generic.py``); the other SA problems wait for
+their slices.  Not
 ported: multi-device runs (``--ndev``), and ``--debug timing``, whose
 counterpart is ``chip_smoke.py`` [4 layers].
 """

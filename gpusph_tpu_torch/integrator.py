@@ -9,13 +9,15 @@ steps in a Python loop.  A step starts with the density filters that are
 due at its global iteration (FILTER phase, `ops/filters.py`).  Each forces
 pass first refreshes Grenier's sigma and density (COMPUTE_DENSITY,
 `ops/grenier.py`), solves for the granular effective pressure (EFFPRES,
-`ops/jacobi.py`) and computes the SPS stress and the effective viscosity
-where the model needs them (CALC_VISC, `ops/visc.py`).  The forces engine
-follows the configuration: the forces kernel (`ops/forces_kernel.py`; the
-CUDA kernel on the card, its plain version on the CPU) where
-``kernel_supported`` holds, else the general pair path (`ops/forces.py`, on
-``neighbor_apply``), which also takes a time-dependent gravity.  The host
-loop handles termination and the overflow and dt checks.
+`ops/jacobi.py`), computes the SA walls' gamma by quadrature and imposes
+their density (`ops/sa.py`), and computes the SPS stress and the effective
+viscosity where the model needs them (CALC_VISC, `ops/visc.py`).  The
+forces engine follows the configuration: the forces kernel
+(`ops/forces_kernel.py`; the CUDA kernel on the card, its plain version on
+the CPU) where ``kernel_supported`` holds, else the general pair path
+(`ops/forces.py`, on ``neighbor_apply``), which also takes a time-dependent
+gravity and SA walls.  The host loop handles termination and the overflow
+and dt checks.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from .ops.grenier import grenier_density_sigma
 from .ops.integrate import compute_dt, euler_step
 from .ops.jacobi import jacobi_effpres
 from .ops.neighbors import CellGrid, build_cells
+from .ops.sa import compute_gamma, impose_boundary_conditions
 from .ops.visc import effective_viscosity, sps_stress
 from .state import ParticleState
 
@@ -79,16 +82,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _unported(fw: SimFramework) -> Optional[str]:
-    """The missing slice a configuration needs, or None (the options that
-    need SA boundaries are named before SA itself)."""
+    """The missing slice a configuration needs, or None: SA boundaries run
+    on the gamma-quadrature path, without the options that build on them."""
     if fw.visc.turbmodel == TurbulenceModel.KEPSILON:
         return "the k-epsilon model (ROADMAP item 9)"
     if fw.flags & SimFlags.ENABLE_DENSITY_SUM:
         return "density summation (with SA boundaries, ROADMAP item 8)"
     if fw.io is not None:
         return "open boundaries (ROADMAP item 9)"
-    if fw.sa_boundary:
-        return "SA boundaries (ROADMAP item 8)"
     return None
 
 
@@ -116,12 +117,14 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
     granular = fw.visc.rheologytype == RheologyType.GRANULAR
     needs_sps = fw.visc.turbmodel == TurbulenceModel.SPS
     needs_effvisc = fw.visc.needs_effective_visc
+    sa = fw.sa_boundary
 
     def forces(state, plan, aux, cells, dt, t):
         """One forces pass at time t; returns it and the state, whose
-        density Grenier's COMPUTE_DENSITY and whose effective pressure and
-        surface flags the EFFPRES solve refreshed."""
-        sigma = sps_tau = effvisc = None
+        density Grenier's COMPUTE_DENSITY, whose effective pressure and
+        surface flags the EFFPRES solve and whose wall density the SA
+        boundary conditions refreshed."""
+        sigma = sps_tau = effvisc = gamma = None
         if grenier:
             # densityGrenierDevice before every forces pass (JAX
             # integrator.py:124-130)
@@ -133,6 +136,11 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
             ep, info, _ = jacobi_effpres(fw, grid, state, aux, state.extras["effpres"],
                                          cells=cells)
             state = state.replace(extras=dict(state.extras, effpres=ep), info=info)
+        if sa:
+            # gamma by quadrature, then the wall density from the fluid
+            # (JAX integrator.py:134-157)
+            gamma, _ = compute_gamma(fw, grid, state, aux, cells=cells, with_grad=False)
+            state = impose_boundary_conditions(fw, grid, state, aux, gamma, cells=cells)
         # CALC_VISC before each forces pass (JAX integrator.py:95-106)
         if needs_sps:
             sps_tau, _ = sps_stress(fw, grid, state, aux, cells=cells)
@@ -142,7 +150,8 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
         if use_kernel:
             return compute_forces_kernel(fw, grid, state, plan, effvisc), state
         return compute_forces(fw, grid, state, aux, dt=dt, sps_tau=sps_tau,
-                              effvisc=effvisc, sigma=sigma, t=t, cells=cells), state
+                              effvisc=effvisc, sigma=sigma, t=t, cells=cells,
+                              gamma=gamma), state
 
     def pc_step(state, dt, t, bodies, plan, aux, cells, it):
         # FILTER: the density filters due at global iteration it

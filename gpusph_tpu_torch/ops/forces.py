@@ -22,12 +22,17 @@ Physics (reference anchor in parentheses):
 * density diffusion: Ferrari / Molteni & Colagrossi / Brezzi, with the
   Grenier and Hu & Adams variants (`:1582-1996`)
 * XSPH (reference factor 2) and internal energy (`:2986-2994`, `:3306-3316`)
-* moving-body feedback rows, planes, and a time-dependent gravity
+* moving-body feedback rows, planes, a DEM terrain and a time-dependent
+  gravity
+* SA boundaries (`ops/sa.py`): vertices as volumic neighbors, the segment
+  continuity term (`:2078-2091`) and pressure term (`:2416-2430`) with the
+  analytic grad gamma, at a search radius expanded by dp/2
 
-The finalize step (Grenier's fixup, gravity, rho0 scaling, the CFL maxima)
-mirrors `finalizeforcesDevice` (`forces_kernel.def:4037-4110`) and
-``dtreduce`` (`forces.cu:557-600`).  SA boundaries, k-epsilon and DEM
-terrain raise ``NotImplementedError``: they wait for their slices.
+The finalize step (Grenier's fixup, the SA division by gamma, gravity, rho0
+scaling, the CFL maxima) mirrors `finalizeforcesDevice`
+(`forces_kernel.def:4037-4110`, fixup `:3183-3240`) and ``dtreduce``
+(`forces.cu:557-600`).  Only the k-epsilon model raises
+``NotImplementedError``: it waits for its slice (ROADMAP item 9a).
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from . import eos
 from .kernels import F as kernF
 from .kernels import W as kernW
 from .pair import merge_vec, neighbor_apply, split_vec
+from .sa import PairSlots, grad_gamma_wendland, sa_extra_fields, sa_pair_inputs
 
 
 @dataclasses.dataclass
@@ -97,8 +103,6 @@ def _unported(fw) -> Optional[str]:
     """The branch of the JAX pass this one lacks for ``fw``, or None."""
     if fw.visc.turbmodel == TurbulenceModel.KEPSILON:
         return "the k-epsilon model (ROADMAP item 9)"
-    if fw.sa_boundary:
-        return "SA boundaries (ROADMAP item 8)"
     return None
 
 
@@ -155,6 +159,8 @@ def _pair_fields(fw, state, sps_tau=None, effvisc=None, sigma=None):
                                   device=press.device)
         for c in range(6):
             fields[f"sps_tau{c}"] = sps_tau[:, c]
+    if fw.sa_boundary:
+        fields.update(sa_extra_fields(state))
     return fields
 
 
@@ -172,11 +178,13 @@ def gravity_vector(fw, t=None, device="cpu"):
 
 
 def compute_forces(fw, grid, state, aux, *, dt=None, sps_tau=None, effvisc=None,
-                   sigma=None, t=None, cells=None) -> ForcesOut:
+                   sigma=None, t=None, cells=None, gamma=None) -> ForcesOut:
     """One forces pass over the (sorted) particle state on the general pair
     path.  ``dt`` feeds Brezzi's diffusion, ``t`` the gravity callback;
     ``cells`` are the occupied cells of the rebuild (``neighbor_apply``'s
-    default finds them, which waits for the device)."""
+    default finds them, which waits for the device); ``gamma`` is the SA
+    wall-renormalization factor of ``ops/sa.py:compute_gamma`` (1 when
+    None)."""
     missing = _unported(fw)
     if missing is not None:
         raise NotImplementedError(f"the general forces pass: not ported yet: {missing}")
@@ -190,7 +198,14 @@ def compute_forces(fw, grid, state, aux, *, dt=None, sps_tau=None, effvisc=None,
     grenier = fw.sph_formulation == SPHFormulation.SPH_GRENIER
     ha = fw.sph_formulation == SPHFormulation.SPH_HA
     f2 = fw.sph_formulation == SPHFormulation.SPH_F2
-    FLUID, BOUND = ParticleType.FLUID, ParticleType.BOUNDARY
+    sa = fw.sa_boundary
+    FLUID, BOUND, VERTEX = ParticleType.FLUID, ParticleType.BOUNDARY, ParticleType.VERTEX
+    # SA: the pair mask reaches dp/2 past the influence radius for the
+    # segments (boundNlSqInflRad); the volumic terms still cut at the
+    # influence radius, since W and F are not masked beyond 2h
+    nl_radius = sp.influenceradius + (0.5 * sp.deltap if sa else 0.0)
+    kernel_rad2 = torch.tensor(sp.influenceradius**2, dtype=torch.float32,
+                               device=state.pos.device)
 
     def pair_fn(c, n, g):
         f = kernF(fw.kerneltype, g.r, h)  # [C,K,NB]
@@ -207,7 +222,18 @@ def compute_forces(fw, grid, state, aux, *, dt=None, sps_tau=None, effvisc=None,
         m_n = n["mass"]
         rho_c = c["rho"]
         rho_n = n["rho"]
-        ff_mask = g.mask & c_fluid & n_fluid
+        if sa:
+            # vertices are mass-carrying volumic neighbors; segments add
+            # only the grad-gamma terms of fluid centrals
+            gmask = g.mask & (g.r2 < kernel_rad2)
+            n_vol = n_fluid | (n["ptype"] == VERTEX)
+            seg_mask = g.mask & c_fluid & n_bound
+            slots = PairSlots(seg_mask)  # grad gamma on the segment pairs alone
+            ggamAS = slots.put(grad_gamma_wendland(*sa_pair_inputs(n, g, h, slots), h))
+            ns = (n["nrm_x"], n["nrm_y"], n["nrm_z"])
+        else:
+            gmask = g.mask
+        ff_mask = gmask & c_fluid & n_fluid
 
         out = {}
         # --- continuity (forces_kernel.def:2139-2155): with DYN boundaries,
@@ -215,6 +241,8 @@ def compute_forces(fw, grid, state, aux, *, dt=None, sps_tau=None, effvisc=None,
         # LJ/MK boundaries they take no part in it
         if dyn:
             cont_mask = g.mask & (c_fluid | c_bound) & (n_fluid | n_bound)
+        elif sa:
+            cont_mask = gmask & c_fluid & n_vol
         else:
             cont_mask = ff_mask
         if grenier:
@@ -230,10 +258,19 @@ def compute_forces(fw, grid, state, aux, *, dt=None, sps_tau=None, effvisc=None,
                 # density-ratio correction (:2156-2171)
                 DrDt_term = DrDt_term * rho_c / rho_n
         DrDt = torch.where(cont_mask, DrDt_term, 0.0)
+        if sa:
+            # the SA boundary continuity term (forces_kernel.def:2078-2091):
+            # DrDt -= rho_a (v_as . n_s) ||grad gamma_as||
+            DrDt = DrDt - torch.where(
+                seg_mask, rho_c * (relvx * ns[0] + relvy * ns[1] + relvz * ns[2]) * ggamAS,
+                0.0)
         out["DrDt"] = DrDt + _density_diffusion(fw, c, n, g, f, ff_mask, dt, gvec)
 
         # --- momentum: pressure gradient ------------------------------------
-        mom_mask = g.mask & c_fluid & ((n_fluid | n_bound) if dyn else n_fluid)
+        if sa:
+            mom_mask = gmask & c_fluid & n_vol
+        else:
+            mom_mask = g.mask & c_fluid & ((n_fluid | n_bound) if dyn else n_fluid)
         if fw.has_moving_bodies:
             # body force feedback: boundary centrals accumulate the
             # hydrodynamic terms from fluid neighbors; euler ignores them,
@@ -347,6 +384,11 @@ def compute_forces(fw, grid, state, aux, *, dt=None, sps_tau=None, effvisc=None,
             if sv is not None:
                 dedt = dedt + sv * (relvx * relvx + relvy * relvy + relvz * relvz)
             out["DEDt"] = -0.5 * dedt
+        if sa:
+            # the SA boundary pressure term (forces_kernel.def:2416-2430):
+            # DvDt += pGradTerm rho_s ||grad gamma_as|| n_s
+            sseg = torch.where(seg_mask, pgrad * rho_n * ggamAS, 0.0)
+            dv = [dv[0] + sseg * ns[0], dv[1] + sseg * ns[1], dv[2] + sseg * ns[2]]
         if extra is not None:
             dv = [a + b for a, b in zip(dv, extra)]
         out["DvDt_x"], out["DvDt_y"], out["DvDt_z"] = dv
@@ -363,15 +405,15 @@ def compute_forces(fw, grid, state, aux, *, dt=None, sps_tau=None, effvisc=None,
 
     sums = neighbor_apply(grid, aux, fields, pair_fn,
                           max_parts_per_cell=sp.max_parts_per_cell,
-                          influenceradius=sp.influenceradius, cells=cells)
-    return finalize_general(fw, state, fields, sums, gvec)
+                          influenceradius=nl_radius, cells=cells)
+    return finalize_general(fw, state, fields, sums, gvec, gamma)
 
 
-def finalize_general(fw, state, fields, sums, gvec) -> ForcesOut:
+def finalize_general(fw, state, fields, sums, gvec, gamma=None) -> ForcesOut:
     """The finalize step of the general pass (finalizeforcesDevice,
-    forces_kernel.def:4037-4110): Grenier's fixup, gravity, moving-body
-    rows, planes, the DEM terrain, the relative-density rate and the CFL
-    maxima."""
+    forces_kernel.def:4037-4110): Grenier's fixup, the SA division by
+    gamma, gravity, moving-body rows, planes, the DEM terrain, the
+    relative-density rate and the CFL maxima."""
     from .planes import apply_plane_forces  # planes takes _powf from here
 
     pp = fw.pp
@@ -384,6 +426,15 @@ def finalize_general(fw, state, fields, sums, gvec) -> ForcesOut:
         # Grenier fixup: pair-sum force /= rho (forces_kernel.def:3183-3190),
         # before gravity
         DvDt = DvDt / fields["rho"][:, None]
+    DrDt_sum = sums["DrDt"]
+    if fw.sa_boundary:
+        # SA fixup: the fluid rows' pair sums are divided by gamma before
+        # gravity (forces_fixup, forces_kernel.def:3225-3240)
+        if gamma is None:
+            gamma = torch.ones_like(DrDt_sum)
+        gdiv = torch.where(is_fluid_c, gamma, 1.0)
+        DvDt = DvDt / gdiv[:, None]
+        DrDt_sum = DrDt_sum / gdiv
     g = torch.stack([torch.as_tensor(c, dtype=torch.float32, device=dev) for c in gvec])
     DvDt = DvDt + torch.where(is_fluid_c[:, None], g[None, :], 0.0)
     if not fw.has_moving_bodies:
@@ -400,11 +451,11 @@ def finalize_general(fw, state, fields, sums, gvec) -> ForcesOut:
     if grenier:
         # DJ/Dt = (pair sum)/sigma; euler integrates J, the density comes
         # from the COMPUTE_DENSITY pass
-        DrDt = sums["DrDt"] / torch.clamp(fields["sigma"], min=1e-30)
+        DrDt = DrDt_sum / torch.clamp(fields["sigma"], min=1e-30)
     else:
         # physical DrDt to the relative-density rate (forces_kernel.def:4581)
         rho0 = eos._per_fluid(pp, fields["f_num"], [f.rho0 for f in pp.fluids])
-        DrDt = sums["DrDt"] / rho0
+        DrDt = DrDt_sum / rho0
     xsph = merge_vec(sums, "xsph") if fw.has_xsph else torch.zeros_like(state.vel)
     DEDt = sums.get("DEDt", torch.zeros_like(DrDt))
 

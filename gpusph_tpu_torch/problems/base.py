@@ -20,8 +20,11 @@ the reference volume and log-volume extras.  ``sediment`` marks a
 geometry's particles as the granular sediment phase (FG_SEDIMENT), and a
 granular build carries the ``effpres`` extra the Jacobi solver refreshes.
 ``add_stl_mesh`` and ``add_xyz_file`` read STL meshes (`geometry/stl.py`)
-and XYZ point files.  Not ported yet: HDF5 geometry, SA meshes and open
-boundaries.
+and XYZ point files.  ``add_sa_box`` and ``add_sa_plate`` declare SA wall
+meshes (`geometry/sa_mesh.py`): their vertex and segment rows follow the
+geometries and test points, the grid and the cell probe take the SA search
+radius, and the build carries the ``belem`` and ``vr0..vr2`` extras of
+``ops/sa.py``.  Not ported yet: HDF5 geometry and open boundaries.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from ..defs import (ParticleType, PostProcessType, RheologyType, SimFlags, SPHFo
                     WriterType)
 from ..framework import SimFramework, setup_framework
 from ..geometry import primitives as geo
+from ..geometry.sa_mesh import box_sa_mesh, plate_sa_mesh
 from ..ops import eos
 from ..ops.block_plan import SPAN, probe_plan_numpy
 from ..ops.forces_kernel import kernel_supported
@@ -136,6 +140,7 @@ class Problem:
         self.vtk_write_every = 0.0
         self.writer_freqs: Dict[str, float] = {}  # extra writers (legacy/text)
         self.body_motion: Dict[int, Callable] = {}  # geometry id -> motion(t)
+        self.sa_meshes: List[dict] = []  # SA boundary meshes (sa_mesh dicts)
 
     def __init_subclass__(cls, **kw):
         super().__init_subclass__(**kw)
@@ -323,6 +328,27 @@ class Problem:
     def add_plane(self, point, normal):
         self.planes.append(Plane(tuple(point), tuple(normal)))
 
+    def add_sa_box(self, origin, size, *, faces="all", outward=False):
+        """SA boundary box: vertex particles + triangular boundary elements
+        (the procedural equivalent of the reference's Crixus HDF5 input,
+        `ProblemAPI_1.cc:1998-2014`).  Requires BoundaryType.SA_BOUNDARY.
+        ``faces`` is "all", "open_top" or "channel"; ``outward=True`` makes
+        an obstacle box (normals toward the fluid outside)."""
+        self.sa_meshes.append(box_sa_mesh(origin, size, self.deltap, faces=faces,
+                                          outward=outward))
+        return len(self.sa_meshes) - 1
+
+    def add_sa_plate(self, origin, u_vec, v_vec, normal, *, io=None,
+                     periodic_u=False, periodic_v=False):
+        """Single SA wall plate spanned by ``u_vec`` x ``v_vec`` with inward
+        unit ``normal``; periodic edges share the seam vertices.  An open
+        boundary plate (``io``) waits for its slice."""
+        if io is not None:
+            raise NotImplementedError("not ported yet: open boundaries (ROADMAP item 9b)")
+        self.sa_meshes.append(plate_sa_mesh(origin, u_vec, v_vec, normal, self.deltap,
+                                            periodic_u=periodic_u, periodic_v=periodic_v))
+        return len(self.sa_meshes) - 1
+
     def add_testpoint(self, p):
         self.testpoints.append(tuple(p))
 
@@ -408,13 +434,17 @@ class Problem:
         """Size the cell capacity and the candidate-run extent from the
         initial occupancy, plus headroom for transient compression (the
         runtime CHECK_NEIBSNUM-style abort still guards the margin)."""
-        probe = make_grid(self.origin, self.size, self.fw.influenceradius,
+        # probe with the (SA-expanded) radius of the real grid
+        probe = make_grid(self.origin, self.size, self._search_radius(),
                           periodic=self.fw.periodicbound)
         occ = 1.0
         for cs_ in probe.cell_size:
             occ *= cs_ / self.deltap
         occ0 = 0
         pts = [g.points for g in self.geometries if len(g.points)]
+        # SA meshes contribute vertex + segment particles to the cells
+        for mesh in self.sa_meshes:
+            pts += [mesh["verts"], mesh["seg_pos"]]
         if pts:
             allp = np.concatenate(pts)
             ijk = np.clip(
@@ -437,11 +467,20 @@ class Problem:
             runw = csum[:, :, wlen:] - csum[:, :, :-wlen]
             runmax = int(runw.max()) if runw.size else int(cgrid.sum())
             self._update_sp(max_run_extent=int(-(-int(runmax * 1.15 + 16) // 8) * 8))
-        k_auto = max(int(occ * 1.7 + 8), int(occ0 * 1.15 + 8))
+        # SA walls pack segments + vertices between the fluid layers and the
+        # fluid settles toward them: a wider transient margin
+        m0 = 1.4 if self.sa_meshes else 1.15
+        k_auto = max(int(occ * 1.7 + 8), int(occ0 * m0 + 8))
         k_auto = -(-k_auto // 8) * 8
         if k_auto > self.fw.sp.max_parts_per_cell:
             self._update_sp(max_parts_per_cell=k_auto)
         self.fw = self.fw.finalize()
+
+    def _search_radius(self) -> float:
+        """The neighbor-search radius: SA boundary elements interact through
+        their whole triangle, not just the barycenter, so SA expands it by
+        dp/2 (the reference's boundNlSqInflRad, GPUWorker.cc:1890)."""
+        return self.fw.influenceradius + (0.5 * self.deltap if self.sa_meshes else 0.0)
 
     def build(self, capacity: Optional[int] = None) -> Tuple[CellGrid, ParticleState]:
         """Assemble grid + initial particle state on the CPU (fill_parts +
@@ -486,7 +525,7 @@ class Problem:
             self._update_pp(dcoeff=5.0 * self.get_gravity_magnitude() * H)
             self.fw = self.fw.finalize()
 
-        grid = make_grid(self.origin, self.size, self.fw.influenceradius,
+        grid = make_grid(self.origin, self.size, self._search_radius(),
                          periodic=self.fw.periodicbound)
 
         # auto water level: highest fluid particle (ProblemAPI_1.cc:308-311)
@@ -546,6 +585,26 @@ class Problem:
             info_list.append(np.full(1, make_info(ParticleType.TESTPOINT), np.int32))
         n_total = sum(len(p) for p in pos_list)
 
+        # SA boundary meshes: vertex particles, then segment (boundary
+        # element) particles, with their normals and vertex offsets
+        sa_rows = []  # (start, normals, vertex offsets or None)
+        rho0_0 = self.fw.pp.fluids[0].rho0
+        for mesh in self.sa_meshes:
+            for pts, normals, vr, mass, ptype in (
+                    # Crixus-style vertex mass: rho0 x the fluid-side Voronoi volume
+                    (mesh["verts"], mesh["vert_normal"], None, rho0_0 * mesh["vert_volume"],
+                     ParticleType.VERTEX),
+                    (mesh["seg_pos"], mesh["seg_normal"], mesh["seg_verts"],
+                     np.zeros(len(mesh["seg_pos"])), ParticleType.BOUNDARY)):
+                n = len(pts)
+                pos_list.append(pts)
+                vel_list.append(np.zeros((n, 3)))
+                rho_list.append(np.zeros(n))
+                mass_list.append(mass)
+                info_list.append(np.full(n, make_info(ptype), np.int32))
+                sa_rows.append((n_total, normals, vr))
+                n_total += n
+
         if capacity is None:
             capacity = n_total
         pos = np.concatenate(pos_list).astype(np.float32)
@@ -567,6 +626,19 @@ class Problem:
         if self.fw.visc.rheologytype == RheologyType.GRANULAR:
             # the effective pressure of the Jacobi solver (BUFFER_EFFPRES)
             extras["effpres"] = torch.zeros((capacity,), dtype=torch.float32)
+        if self.sa_meshes:
+            # inward normals of segments and vertices, and each segment's
+            # vertex offsets from its barycenter
+            belem = np.zeros((capacity, 3), np.float32)
+            vrs = [np.zeros((capacity, 3), np.float32) for _ in range(3)]
+            for start, normals, vr in sa_rows:
+                belem[start:start + len(normals)] = normals
+                if vr is not None:
+                    for i in range(3):
+                        vrs[i][start:start + len(normals)] = vr[:, i]
+            extras["belem"] = torch.as_tensor(belem)
+            for i in range(3):
+                extras[f"vr{i}"] = torch.as_tensor(vrs[i])
         state = empty_state(capacity, extras)  # a fresh state, filled in place
         f32 = torch.float32
         state.pos[:n_total] = torch.as_tensor(pos)

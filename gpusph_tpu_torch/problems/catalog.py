@@ -10,14 +10,15 @@ forces kernel; Seiche (SPS, a gravity callback), RTInstability and Bubble
 (Grenier, two fluids) and BiFluidPoiseuille (Hu & Adams, two fluids), which
 run on the general pair path; LithostaticLJ, LithostaticDYN and
 DamBreakMobileBed (granular rheology with the Jacobi effective pressure)
-and OilJet (Grenier, a piston) on the general path, and DEMExample (a DEM
-terrain) on the forces kernel; each with the JAX package's options and
+and OilJet (Grenier, a piston) on the general path, StillWaterSA (SA walls
+on the gamma-quadrature path, ``--density_sum 0``) on the general path, and
+DEMExample (a DEM terrain) on the forces kernel; each with the JAX package's options and
 geometry.  A gravity callback returns tensors on its time's device.  A
 motion callback returns ``bodies.body_velocity`` of the chunk's time
 tensor.  ``problems/generic.py`` adds Generic (a scene read from an INI
-file).  ``NOT_PORTED`` names every other problem of the JAX catalog, the SA
-family, with the modules it waits for; ``get_problem`` raises with that
-text.
+file).  ``NOT_PORTED`` names every other problem of the JAX catalog, the
+rest of the SA family, with the modules it waits for; ``get_problem``
+raises with that text.
 """
 from __future__ import annotations
 
@@ -280,6 +281,58 @@ class StillWater(Problem):
                      (dp, dp, dp), side - 2 * dp, side - 2 * dp, H - dp)
         self.set_water_level(H)
         self.add_writer(freq=0.1)
+
+
+class StillWaterSA(Problem):
+    """Hydrostatic box with semi-analytical boundaries (reference
+    `src/problems/StillWater.cu` with `boundary<SA_BOUNDARY>`, geometry from
+    the Crixus HDF5 input, generated procedurally here by ``add_sa_box``).
+
+    The JAX package's default integrates with density summation and a
+    dynamic gamma (ENABLE_DENSITY_SUM), which waits for its slice (ROADMAP
+    item 8b): that configuration builds and ``make_sim_chunk`` raises for
+    it.  ``--density_sum 0`` runs the continuity equation with gamma by
+    quadrature before every forces pass (``ops/sa.py``) on the general pair
+    path.
+    """
+
+    name = "StillWaterSA"
+
+    def __init__(self, options=None):
+        super().__init__(options)
+        H = self.get_option("water_height", 0.5)
+        l = self.get_option("side", 0.5)  # noqa: E741  (the JAX package's name)
+        ppH = self.get_option("ppH", 24)
+
+        flags = SimFlags.ENABLE_DTADAPT
+        if self.get_option("density_sum", 1):
+            flags |= SimFlags.ENABLE_DENSITY_SUM
+        self.setup_framework(
+            kernel=KernelType.WENDLAND,
+            boundary=BoundaryType.SA_BOUNDARY,
+            rheology=RheologyType.INVISCID,
+            turbulence_model=TurbulenceModel.ARTIFICIAL,
+            density_diffusion=DensityDiffusionType(
+                self.get_option("density-diffusion", int(DensityDiffusionType.COLAGROSSI))),
+            flags=flags,
+            simparams=SimParams(densityDiffCoeff=0.1),
+        )
+        self.set_deltap(H / ppH)
+        dp = self.deltap
+        self.set_gravity(-9.81)
+        self.set_max_fall(H)
+        fl = self.add_fluid(1000.0)
+        self.set_equation_of_state(fl, 7.0, 10 * math.sqrt(9.81 * H))
+        self.set_tend(self.get_option("tend", 5.0))
+        self.add_writer(freq=0.5)
+
+        h_box = H + 6 * dp
+        self.make_universe_box((-2 * dp, -2 * dp, -2 * dp),
+                               (l + 4 * dp, l + 4 * dp, h_box + 4 * dp))
+        self.add_sa_box((0.0, 0.0, 0.0), (l, l, h_box), faces="all")
+        self.add_box(GeometryType.FLUID, FillType.SOLID,
+                     (dp, dp, dp), l - 2 * dp, l - 2 * dp, H - dp)
+        self.set_water_level(H)
 
 
 class LockExchange(Problem):
@@ -1935,18 +1988,18 @@ class OilJet(Problem):
 
 # the other problems of the JAX package's catalog, and what each waits for
 NOT_PORTED = {
-    "StillWaterSA": "SA boundaries (ROADMAP item 8)",
-    "StillWaterRepackSA": "SA boundaries (ROADMAP item 8)",
-    "LithostaticSA": "SA boundaries (ROADMAP item 8)",
-    "BiFluidPoiseuilleSA": "SA boundaries (ROADMAP item 8)",
-    "ChannelIO": "SA boundaries and open boundaries (ROADMAP items 8-9)",
-    "CompleteSaExample": "SA boundaries and open boundaries (ROADMAP items 8-9)",
-    "Spheric2SA": "SA boundaries and the k-epsilon model (ROADMAP items 8-9)",
-    "TurbulentPoiseuilleFlowSA": "SA boundaries and the k-epsilon model (ROADMAP items 8-9)",
+    "StillWaterRepackSA": "SA boundaries with density summation (ROADMAP item 8b)",
+    "LithostaticSA": "SA boundaries with density summation (ROADMAP item 8b)",
+    "BiFluidPoiseuilleSA": "SA boundaries with density summation (ROADMAP item 8b)",
+    "ChannelIO": "SA boundaries with open boundaries (ROADMAP item 9b)",
+    "CompleteSaExample": "SA boundaries with open boundaries (ROADMAP item 9b)",
+    "Spheric2SA": "SA boundaries with the k-epsilon model (ROADMAP item 9a)",
+    "TurbulentPoiseuilleFlowSA": "SA boundaries with the k-epsilon model (ROADMAP item 9a)",
 }
 
 
-__all__ = ["NOT_PORTED", "DamBreak3D", "Poiseuille", "StillWater", "LockExchange", "OpenChannel",
+__all__ = ["NOT_PORTED", "DamBreak3D", "Poiseuille", "StillWater", "StillWaterSA",
+           "LockExchange", "OpenChannel",
            "BuoyancyTest", "Spheric2", "AccuracyTest", "Objects", "DynBoundsExample",
            "ProblemExample", "PoiseuillePapanastasiou", "DamBreakGate", "WaveTank",
            "SolitaryWave", "OffshorePile", "SlidingWedge", "Seiche", "RTInstability",

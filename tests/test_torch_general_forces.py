@@ -287,15 +287,17 @@ def test_general_pass_matches_brute_force(name):
 
 
 def test_unported_branches_raise():
-    """SA boundaries and k-epsilon name their slices (the DEM terrain runs:
-    the "dem" case above)."""
+    """k-epsilon names its slice; SA boundaries run (the DEM terrain too:
+    the "dem" case above; tests/test_torch_sa.py holds the SA pass against
+    the JAX package's)."""
     fw = framework(T)
     grid = make_grid((0, 0, 0), (BOX,) * 3, fw.influenceradius)
     st, aux = build_cells(grid, state_from_numpy(scene({})[0]))
     sa = dataclasses.replace(fw, boundarytype=T.defs.BoundaryType.SA_BOUNDARY)
-    for bad, match in (
-            (sa, "SA boundaries"),
-            (dataclasses.replace(sa, visc=dataclasses.replace(
-                fw.visc, turbmodel=T.defs.TurbulenceModel.KEPSILON)), "k-epsilon")):
-        with pytest.raises(NotImplementedError, match=match):
-            compute_forces(bad, grid, st, aux)
+    with pytest.raises(NotImplementedError, match="k-epsilon"):
+        compute_forces(dataclasses.replace(sa, visc=dataclasses.replace(
+            fw.visc, turbmodel=T.defs.TurbulenceModel.KEPSILON)), grid, st, aux)
+    # the SA extras of a scene without a mesh: no normals, no triangles
+    zeros = {k: torch.zeros_like(st.pos) for k in ("belem", "vr0", "vr1", "vr2")}
+    out = compute_forces(sa, grid, st.replace(extras=zeros), aux)
+    assert bool(torch.isfinite(out.DvDt).all())

@@ -81,8 +81,8 @@ def test_unported_configurations_raise():
     """make_sim_chunk names the missing slice instead of skipping it; the
     filters, SPS, Grenier, a gravity callback, the granular rheology and a
     DEM terrain build (the general pair path takes all but the filters and
-    the DEM); only k-epsilon, density summation, open boundaries and SA
-    raise."""
+    the DEM), and so do SA boundaries on the gamma-quadrature path; only
+    k-epsilon, density summation and open boundaries raise."""
     import dataclasses
 
     from gpusph_tpu_torch.defs import (BoundaryType, FilterType, RheologyType, SimFlags,
@@ -101,13 +101,13 @@ def test_unported_configurations_raise():
         turbmodel=TurbulenceModel.LAMINAR_FLOW)), grid)
     make_sim_chunk(dataclasses.replace(fw, dem=((0.0,),)), grid)
     sa = dataclasses.replace(fw, boundarytype=BoundaryType.SA_BOUNDARY)
+    make_sim_chunk(sa, grid)
     for bad, match in (
             (dataclasses.replace(sa, visc=dataclasses.replace(
                 fw.visc, turbmodel=TurbulenceModel.KEPSILON)), "k-epsilon"),
             (dataclasses.replace(sa, flags=fw.flags | SimFlags.ENABLE_DENSITY_SUM),
              "density summation"),
-            (dataclasses.replace(fw, io=((0.0,),)), "open boundaries"),
-            (sa, "SA boundaries")):
+            (dataclasses.replace(fw, io=((0.0,),)), "open boundaries")):
         with pytest.raises(NotImplementedError, match=match):
             make_sim_chunk(bad, grid)
 
@@ -118,7 +118,8 @@ def test_new_modules_fall_under_the_import_ban():
     for mod in ("io/vtk.py", "io/writers.py", "io/hotfile.py", "ops/pair.py",
                 "ops/postprocess.py", "repacking.py", "ops/filters.py", "ops/visc.py",
                 "ops/forces.py", "ops/grenier.py", "ops/jacobi.py", "ops/dem.py",
-                "geometry/stl.py", "problems/generic.py"):
+                "geometry/stl.py", "problems/generic.py", "ops/sa.py",
+                "geometry/sa_mesh.py"):
         assert f"gpusph_tpu_torch/{mod}" in names, mod
 
 
