@@ -48,7 +48,8 @@ Phases, one line each; any failure exits non-zero and prints no ``ok`` line:
    configuration of ``GENERAL`` (Seiche with SPS and its gravity callback,
    RTInstability with Grenier, BiFluidPoiseuille with Hu & Adams,
    Poiseuille with Espanol-Revenga, Bubble at twice its default dp) at its
-   default width, a warm-up chunk from the build and one timed chunk (CUDA
+   default width (Bubble also at its default dp, in chunks of 2 steps), a
+   warm-up chunk from the build and one timed chunk (CUDA
    events), phase 4's checks and no forces-kernel launch; its particles,
    pair slots per pass, ms per general forces pass and per Grenier / SPS
    pass; Seiche's timed chunk inside the callback's window, the gravity of
@@ -66,7 +67,7 @@ Phases, one line each; any failure exits non-zero and prints no ``ok`` line:
    rho_w) g, ROADMAP section 3); DamBreakMobileBed at its
    default width, one forces phase part by part (surface detection, the
    Jacobi solve and its iterations, CALC_VISC, the general pass), and one
-   chunk from its build at twice its dp; DEMExample at its default dp for
+   chunk of 4 steps from its build at twice its dp; DEMExample at its default dp for
    50 iterations (two forces-kernel launches per step, no fluid particle
    below the terrain, kernel vs plain version on the final state); OilJet
    (the piston's chunk against its integrated callback, then a timed chunk
@@ -82,7 +83,21 @@ Phases, one line each; any failure exits non-zero and prints no ``ok`` line:
    the gamma, wall-condition and SA general passes on the final state, with
    their pair slots and fluid-segment pairs; at ppH 10 the flat-wall
    oracles of ``tests/test_sa.py`` on the card, and the gamma, the wall
-   density and one SA general pass card vs CPU.
+   density and one SA general pass card vs CPU;
+12. density summation and the dynamic gamma on SA walls
+   (``ops/density_sum.py``): StillWaterSA at its default (density
+   summation) and width, a warm-up chunk through ``Simulator.run`` (gamma
+   seeded by quadrature) and a timed chunk with its peak device memory,
+   phase 11's checks and the JAX density-sum test's bars (|rho| < 0.2,
+   gamma in [0.1, 1]); the ms of ``volumic_terms``,
+   ``gamma_boundary_terms``, ``apply_density_diffusion`` and
+   ``density_sum_update`` on the final state; the static identity, and
+   gamma integrated over a rigid displacement against the quadrature; the
+   passes card vs CPU at ppH 10; BiFluidPoiseuilleSA (periodic SA plates):
+   the n+1 grad gamma at no motion against the quadrature, and one chunk;
+   LithostaticSA at dp 0.1, a chunk with its cold EFFPRES solve and the
+   effective pressure's slope; StillWaterRepackSA through the CLI
+   (``--repack``, then 10 iterations).
 
 Each phase prints its host seconds (``[time]``), and the script its total
 before the kernels' line.  Then one JSON line describing each kernel, and
@@ -730,6 +745,10 @@ GENERAL = {"Seiche": {}, "RTInstability": {}, "BiFluidPoiseuille": {},
            "Bubble": {}}
 # Seiche starts inside its gravity callback's window (0.3 s, 3.0 s)
 GENERAL_T0 = {"Seiche": 0.35}
+# the steps of a chunk where the phase cuts its depth to make room for later
+# phases (default: the problem's buildneibsfreq, 10): Bubble at its default
+# width takes 18.6-23.7 s a chunk of 10 steps (PERF.md)
+GENERAL_STEPS = {"Bubble": 2}
 # card vs CPU: one chunk on the card at a width whose passes the host CPU
 # takes in seconds, then each pass of its final state on both devices with
 # the same inputs, at phase 8's tolerances.  Grenier's density is held as the
@@ -839,6 +858,9 @@ def general_phase(dev, card, dam):
     for name, opts in GENERAL.items():
         t0 = time.perf_counter()
         prob, fw, grid, state0 = general_problem(name, opts)
+        if name in GENERAL_STEPS:
+            fw = dataclasses.replace(fw, simparams=dataclasses.replace(
+                fw.sp, buildneibsfreq=GENERAL_STEPS[name]))
         build_s = time.perf_counter() - t0
         record = [] if fw.gcallback is not None else None
         chunk, args = start(prob, fw, grid, state0, name, record)
@@ -879,7 +901,7 @@ def general_phase(dev, card, dam):
         steps = fw.sp.buildneibsfreq
         say(f"[9 general] {name}: {n0} particles (build {build_s:.3f} s, grid "
             f"{'x'.join(map(str, grid.ncells))}, periodic {int(grid.periodic)}, K {K}); "
-            f"warm-up chunk {warm_s:.3f} s (host clock), timed chunk from t "
+            f"warm-up chunk {warm_s:.3f} s (host clock), timed chunk of {steps} steps from t "
             f"{float(warm[2]):.6g} {chunk_ms:.6g} ms (CUDA events) = "
             f"{n0 * steps / chunk_ms * 1e3:.6g} particle-steps/s; forces-kernel launches "
             f"{launches}; n_active {n0} -> {n1}; finite {finite}; dt {dt1:.6g}; "
@@ -1006,6 +1028,9 @@ JAX_SLOPE = {"LithostaticLJ": 5628.112439805228, "LithostaticDYN": 7273.32168524
 # width takes 20 forces phases of several seconds each)
 MOBILE_BED = {}
 MOBILE_BED_CHUNK = {"deltap": 0.02}
+# the steps of that chunk (its buildneibsfreq is 10: 25.1-28.7 s a chunk,
+# PERF.md), cut to make room for later phases
+MOBILE_BED_CHUNK_STEPS = 4
 DEM = {}
 DEM_ITERS = 50
 OILJET = {}
@@ -1283,13 +1308,14 @@ def granular_phase(dev, card):
     del sts, aux, ep, effvisc, f
     torch.cuda.empty_cache()
     prob, fw, grid, state0, build_s = problem(name, MOBILE_BED_CHUNK)
+    fw = with_jacobi(fw, buildneibsfreq=MOBILE_BED_CHUNK_STEPS)
     n0 = int(state0.count_active())
     out, chunk_ms, _, _, solves, launches, _ = run_chunks(name, prob, fw, grid, state0,
                                                           warm_up=False)
     steps = fw.sp.buildneibsfreq
     say(f"[10 mobile bed] {name} at dp {fw.sp.deltap}: {n0} particles; one chunk from the "
-        f"build (no warm-up chunk: the default width's forces phase ran first) "
-        f"{chunk_ms:.6g} ms (CUDA events; {solves_text(solves)}) = "
+        f"build of {steps} steps (no warm-up chunk: the default width's forces phase ran "
+        f"first) {chunk_ms:.6g} ms (CUDA events; {solves_text(solves)}) = "
         f"{n0 * steps / chunk_ms * 1e3:.6g} particle-steps/s; forces-kernel launches "
         f"{launches}; dt {float(out[1]):.6g}; {name} took {part_s():.1f} s [{card}]")
     del out
@@ -1908,6 +1934,365 @@ def sa_phase(dev, card):
         fail("StillWaterSA: the SA passes on the card disagree with the CPU")
 
 
+# phase 12: density summation and the dynamic gamma on SA walls
+# (ops/density_sum.py).  StillWaterSA at its default (density summation) and
+# width (ppH 24): a warm-up chunk through Simulator.run (the quadrature seeds
+# gamma first) and a timed chunk; the JAX density-sum test's bars
+# (tests/test_density_sum.py): |rho| < DS_RHO_MAX, gamma in [0.1, 1], the
+# static identity on the seeded state (rho within DS_STATIC_RHO, gamma within
+# DS_STATIC_GAMMA), and gamma integrated over a rigid displacement of the
+# fluid (8 steps of 0.3 dp / 8 towards the floor, at ppH DS_DRIFT_PPH)
+# within DS_DRIFT_ATOL of the quadrature where the quadrature is under
+# 0.999; the peak device memory of the timed chunk under DS_PEAK_GIB
+DS_OPTS = {}
+DS_RHO_MAX = 0.2
+DS_STATIC_RHO = 2e-5
+DS_STATIC_GAMMA = 1e-6
+DS_DRIFT_PPH = 8
+DS_DRIFT_ATOL = 5e-3
+DS_PEAK_GIB = 16.0
+# card vs CPU at ppH 10 on the seeded state, its fluid displaced by a seeded
+# amount of at most 0.3 dp and its density perturbed by seeded noise: (rtol,
+# atol as a fraction of max|CPU|, absolute floor), the tolerances of
+# tests/test_torch_density_sum.py, stated there from the port's measured
+# gaps to the JAX package (the kernel sums in another order), but for grad
+# gamma.  Its f32 formula cancels near a triangle's edge: on this scene the
+# CPU's f32 grad gamma is 0.0306 (5.33e-3 of the largest, 5.75) off the same
+# pass in f64 on one row, so each device may be that far from the f64
+# value and the two twice as far from each other: both devices are held
+# against the CPU's f64 pass at DS_GRAD_F64 of its largest value, and each
+# other at twice that
+DS_CPU_PPH = 10
+DS_GRAD_F64 = 6e-3
+DS_CARD_CPU = {"volumic sum": (0.0, 5e-6, 0.0), "gamma increment": (0.0, 2e-3, 0.0),
+               "grad gamma": (0.0, 2 * DS_GRAD_F64, 0.0), "summed rho": (0.0, 0.0, 1e-4),
+               "summed gamma": (0.0, 0.0, 1e-4), "diffusion change": (0.0, 1e-3, 1e-7)}
+# BiFluidPoiseuilleSA, periodic in x and y, with no motion: the n+1 grad
+# gamma of the density sum against compute_gamma's, within this fraction of
+# its largest value (the port wraps the n+1 relative position; ROADMAP
+# section 3)
+DS_PERIODIC_FRAC = 2e-3
+LITHOSTATIC_SA = {"deltap": 0.1}
+REPACK_SA_ARGV = ["StillWaterRepackSA", "--repack", "--repack_maxiter", "10", "--maxiter",
+                  "10"]
+
+
+def density_sum_phase(dev, card):
+    """Phase 12 (see the docstring)."""
+    import tempfile
+
+    import torch
+
+    from gpusph_tpu_torch.integrator import Simulator, make_sim_chunk
+    from gpusph_tpu_torch.ops import density_sum as ds
+    from gpusph_tpu_torch.ops import eos, forces_kernel
+    from gpusph_tpu_torch.ops.jacobi import effpres_slope
+    from gpusph_tpu_torch.ops.neighbors import build_cells
+    from gpusph_tpu_torch.ops.pair import neighbor_apply, split_vec
+    from gpusph_tpu_torch.ops.sa import compute_gamma
+    from gpusph_tpu_torch.problems.base import get_problem
+    from gpusph_tpu_torch.state import fluid_num, is_fluid
+
+    phase_t0 = time.perf_counter()
+    part_t0 = [phase_t0]
+
+    def part_s():
+        """Host seconds since the last call (or the phase's start)."""
+        now = time.perf_counter()
+        s, part_t0[0] = now - part_t0[0], now
+        return s
+
+    def sorted_inputs(grid, st):
+        sts, aux = build_cells(grid, st)
+        return sts, aux, torch.nonzero(aux.cell_count[:grid.n_cells]).squeeze(1)
+
+    def problem(name, opts):
+        prob = get_problem(name)(dict(opts))
+        grid, state0 = prob.build()
+        return prob, prob.fw.finalize(), grid, state0
+
+    def sane(name, st, n0, dt):
+        """Phase 4's checks and the JAX density-sum test's bars on the active
+        rows of ``st``; returns the text."""
+        act = st.active
+        n1 = int(act.sum())
+        finite = all(bool(torch.isfinite(t).all()) for t in (
+            st.pos, st.vel, st.rho, st.extras["gamma"], st.extras["gradgamma"]))
+        rho_max = float(st.rho[act].abs().max())
+        gam = st.extras["gamma"][act]
+        g_lo, g_hi = float(gam.min()), float(gam.max())
+        if not (n1 == n0 and finite and dt > 1e-10 and rho_max < DS_RHO_MAX
+                and g_lo >= 0.1 - 1e-6 and g_hi <= 1.0 + 1e-6):
+            fail(f"{name}: n_active {n0} -> {n1}, finite {finite}, dt {dt}, max |rho| "
+                 f"{rho_max}, gamma in [{g_lo}, {g_hi}]")
+        return (f"n_active {n0} -> {n1}; finite {finite}; dt {dt:.6g}; max |rho| {rho_max:.6g} "
+                f"(bar {DS_RHO_MAX}); gamma in [{g_lo:.6g}, {g_hi:.6g}] (bar [0.1, 1])")
+
+    # --- StillWaterSA at its default ---------------------------------------------------
+    t0 = time.perf_counter()
+    prob, fw, grid, state0 = problem("StillWaterSA", DS_OPTS)
+    build_s = time.perf_counter() - t0
+    if not fw.dynamic_gamma:
+        fail("StillWaterSA's default does not run density summation")
+    dp, steps, K = fw.sp.deltap, fw.sp.buildneibsfreq, fw.sp.max_parts_per_cell
+    n0 = int(state0.count_active())
+    forces_kernel.launches = 0
+    sim = Simulator(prob.fw, grid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = sim.run(state0, maxiter=steps)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    chunk = make_sim_chunk(fw, grid)
+    f32 = dict(dtype=torch.float32, device=dev)
+    args = (warm, torch.tensor(sim.dt, **f32), torch.tensor(sim.t, **f32), sim.iterations,
+            sim.bodies)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    out = chunk(*args)
+    end.record()
+    torch.cuda.synchronize()
+    chunk_ms = begin.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    launches = forces_kernel.launches
+    st, dt1 = out[0], float(out[1])
+    checks = sane("StillWaterSA", st, n0, dt1)
+    fl = (st.active & is_fluid(st.info)).cpu().numpy()
+    pos = st.pos.cpu().numpy()[fl]
+    top = SA_H + 6 * dp
+    outside = int(((pos[:, :2] < 0.0) | (pos[:, :2] > SA_SIDE)).any(1).sum()
+                  + ((pos[:, 2] < 0.0) | (pos[:, 2] > top)).sum())
+    press = eos.pressure(fw.pp, st.rho, fluid_num(st.info)).cpu().numpy()[fl]
+    rho0, g = fw.pp.fluids[0].rho0, abs(fw.pp.gravity[2])
+    ctr = (np.abs(pos[:, 0] - SA_SIDE / 2) < 0.08) & (np.abs(pos[:, 1] - SA_SIDE / 2) < 0.08)
+    hydro = float(np.mean(np.abs(press[ctr] - rho0 * g * (SA_H - pos[ctr, 2])))
+                  / (rho0 * g * SA_H))
+    gib = 2.0 ** 30
+    say(f"[12 density-sum] StillWaterSA (density summation, its default) at ppH "
+        f"{round(SA_H / dp)}: {n0} particles (build {build_s:.3f} s, grid "
+        f"{'x'.join(map(str, grid.ncells))}, K {K}); warm-up chunk through Simulator.run "
+        f"(the quadrature's seeding included) {warm_s:.3f} s (host clock), timed chunk "
+        f"{chunk_ms:.6g} ms (CUDA events) = {n0 * steps / chunk_ms * 1e3:.6g} "
+        f"particle-steps/s; peak device memory in the timed chunk {peak / gib:.4f} GiB "
+        f"({(peak - base_bytes) / gib:.4f} GiB above its inputs; bar {DS_PEAK_GIB} GiB); "
+        f"forces-kernel launches {launches}; {checks}; t {float(out[2]):.6g}; fluid "
+        f"particles outside the SA box: {outside}; hydrostatic error mean |p - rho g (H - "
+        f"z)| / (rho g H) over {int(ctr.sum())} central particles {hydro:.6g} (a figure, not "
+        f"a gate) [{card}]")
+    if launches != 0:
+        fail(f"StillWaterSA: the forces kernel launched {launches} times on the general path")
+    if outside or peak >= DS_PEAK_GIB * gib:
+        fail(f"StillWaterSA: {outside} fluid particles outside the box, peak memory "
+             f"{peak / gib:.4f} GiB")
+
+    # the new passes on the final state, 3 each (CUDA events)
+    sts, aux, cells = sorted_inputs(grid, st)
+    slots = int(cells.shape[0]) * K * 27 * K
+    ds_kw = dict(cells=cells)
+    moved = sts.pos + 1e-3 * dp  # an n+1 position for the timing
+    new = sts.replace(pos=moved)
+    ms = {
+        "volumic_terms": cuda_ms(lambda: ds.volumic_terms(fw, grid, sts, moved, aux, **ds_kw),
+                                 3, warmup=1),
+        "gamma_boundary_terms": cuda_ms(
+            lambda: ds.gamma_boundary_terms(fw, grid, sts, moved, aux, **ds_kw), 3, warmup=1),
+        "apply_density_diffusion": cuda_ms(
+            lambda: ds.apply_density_diffusion(fw, grid, sts, aux, out[1], **ds_kw), 3,
+            warmup=1),
+        "density_sum_update": cuda_ms(
+            lambda: ds.density_sum_update(fw, grid, sts, new, aux, **ds_kw), 3, warmup=1),
+    }
+    fields = dict(**split_vec("pos", sts.pos), ptype=sts.info & 7)
+    seg_pairs = int(neighbor_apply(grid, aux, fields, lambda c, n, g: {
+        "n": (g.mask & (c["ptype"] == 0) & (n["ptype"] == 1)).float()},
+        max_parts_per_cell=K, influenceradius=fw.sp.influenceradius + 0.5 * dp,
+        cells=cells)["n"].sum())
+    post_ms = ms["density_sum_update"] + ms["apply_density_diffusion"]
+    say(f"[12 passes] StillWaterSA ppH {round(SA_H / dp)} final state, {int(cells.shape[0])} "
+        f"occupied cells, {slots} pair slots per pass, {seg_pairs} fluid-segment pairs: "
+        + ", ".join(f"{k} {v:.6g} ms ({v * 1e6 / slots:.4g} ns per slot)" for k, v in ms.items())
+        + f"; density sum + diffusion {post_ms:.6g} ms after each Euler step x {2 * steps} "
+        f"per chunk (CUDA events, 3 each) [{card}]")
+
+    # the static identity on the seeded state, on the card
+    seeded, s_aux, s_cells = sorted_inputs(grid, state0.to(dev))
+    seeded = ds.init_dynamic_gamma(fw, grid, seeded, s_aux, cells=s_cells)
+    same = ds.density_sum_update(fw, grid, seeded, seeded, s_aux, cells=s_cells)
+    act = seeded.active
+    rho_err = float((same.rho - seeded.rho)[act].abs().max())
+    gam_err = float((same.extras["gamma"] - seeded.extras["gamma"])[act].abs().max())
+    del warm, out, st, sts, aux, new, moved, seeded, same, sim
+    torch.cuda.empty_cache()
+
+    # gamma integrated over a rigid displacement against the quadrature
+    prob_d, fw_d, grid_d, state_d = problem("StillWaterSA", {"ppH": DS_DRIFT_PPH})
+    cur, d_aux, d_cells = sorted_inputs(grid_d, state_d.to(dev))
+    cur = ds.init_dynamic_gamma(fw_d, grid_d, cur, d_aux, cells=d_cells)
+    moving = (cur.active & is_fluid(cur.info))[:, None]
+    nsub = 8
+    step = torch.tensor([0.0, 0.0, -0.3 * fw_d.sp.deltap / nsub], **f32)
+    for _ in range(nsub):
+        nxt = cur.replace(pos=torch.where(moving, cur.pos + step, cur.pos))
+        cur = ds.integrate_gamma(fw_d, grid_d, cur, nxt, d_aux, cells=d_cells)
+    quad, _ = compute_gamma(fw_d, grid_d, cur, d_aux, cells=d_cells, with_grad=False)
+    sel = moving[:, 0] & (quad < 0.999)
+    drift = float((cur.extras["gamma"] - quad)[sel].abs().max())
+    n_sel = int(sel.sum())
+    say(f"[12 identity] on the card: the static density sum of StillWaterSA ppH "
+        f"{round(SA_H / dp)}'s seeded state moves rho by {rho_err:.3g} (bar {DS_STATIC_RHO}) "
+        f"and gamma by {gam_err:.3g} (bar {DS_STATIC_GAMMA}); at ppH {DS_DRIFT_PPH}, gamma "
+        f"integrated over {nsub} steps of a rigid 0.3 dp displacement of the fluid towards "
+        f"the floor against the quadrature at the displaced positions: max error "
+        f"{drift:.3g} over {n_sel} fluid particles near a wall (bar {DS_DRIFT_ATOL}) [{card}]")
+    if not (rho_err <= DS_STATIC_RHO and gam_err <= DS_STATIC_GAMMA and drift <= DS_DRIFT_ATOL
+            and n_sel > 10):
+        fail("StillWaterSA: the density sum misses the static identity or the integrated "
+             "gamma leaves the quadrature")
+
+    # --- card vs CPU at ppH 10 -------------------------------------------------------------
+    prob_c, fw_c, grid_c, state_c = problem("StillWaterSA", {"ppH": DS_CPU_PPH})
+    sa_, c_aux, c_cells = sorted_inputs(grid_c, state_c.to(dev))
+    sa_ = ds.init_dynamic_gamma(fw_c, grid_c, sa_, c_aux, cells=c_cells)
+    rng = np.random.default_rng(12)
+    fluid = ((sa_.info & 7) == 0).cpu().numpy()
+    nf = int(fluid.sum())
+    rho = sa_.rho.cpu().numpy().copy()
+    rho[fluid] += rng.normal(0.0, 1e-3, size=nf)
+    new_pos = sa_.pos.cpu().numpy().copy()
+    new_pos[fluid] += rng.uniform(-0.17, 0.17, size=(nf, 3)) * fw_c.sp.deltap
+    sa_ = sa_.replace(rho=torch.as_tensor(rho, **f32))
+    npa = torch.as_tensor(new_pos, **f32)
+    sb, b_aux, b_cells = sorted_inputs(grid_c, sa_.to("cpu"))
+    if not torch.equal(sa_.id.cpu(), sb.id):
+        fail("StillWaterSA: the card and the CPU sort the particles differently")
+    npb = npa.cpu()
+    t0 = time.perf_counter()
+    rows = {}
+    rows["volumic sum"] = (ds.volumic_terms(fw_c, grid_c, sa_, npa, c_aux, cells=c_cells),
+                           ds.volumic_terms(fw_c, grid_c, sb, npb, b_aux, cells=b_cells))
+    ga = ds.gamma_boundary_terms(fw_c, grid_c, sa_, npa, c_aux, cells=c_cells)
+    gb = ds.gamma_boundary_terms(fw_c, grid_c, sb, npb, b_aux, cells=b_cells)
+    rows["gamma increment"] = (ga["ggdotr"], gb["ggdotr"])
+    grad = lambda d: torch.stack([d[k] for k in ("ggx", "ggy", "ggz")], -1)  # noqa: E731
+    rows["grad gamma"] = (grad(ga), grad(gb))
+    # the same pass in f64 on the CPU
+    f64 = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+    s64 = sb.replace(pos=f64(sb.pos), extras={k: f64(v) for k, v in sb.extras.items()})
+    exact = grad(ds.gamma_boundary_terms(fw_c, grid_c, s64, f64(npb), b_aux, cells=b_cells))
+    g_scale = float(exact.abs().max())
+    g_card, g_cpu = (float((grad(x).cpu().double() - exact).abs().max()) for x in (ga, gb))
+    ua = ds.density_sum_update(fw_c, grid_c, sa_, sa_.replace(pos=npa), c_aux, cells=c_cells)
+    ub = ds.density_sum_update(fw_c, grid_c, sb, sb.replace(pos=npb), b_aux, cells=b_cells)
+    rows["summed rho"] = (ua.rho, ub.rho)
+    rows["summed gamma"] = (ua.extras["gamma"], ub.extras["gamma"])
+    # the diffusion pass from the card's summed state on both devices
+    dt_c = torch.tensor(1e-3, **f32)
+    da = ds.apply_density_diffusion(fw_c, grid_c, ua, c_aux, dt_c, cells=c_cells)
+    db = ds.apply_density_diffusion(fw_c, grid_c, ua.to("cpu"), b_aux, dt_c.cpu(),
+                                    cells=b_cells)
+    rows["diffusion change"] = (da.rho - ua.rho, db.rho - ua.rho.cpu())
+    both_s = time.perf_counter() - t0
+    report, ok = [], True
+    for k, (x, y) in rows.items():
+        rtol, frac, floor = DS_CARD_CPU[k]
+        good, err, scale = held(x.cpu().numpy(), y.numpy(), rtol, frac, floor)
+        ok &= good and scale > 0
+        report.append(f"{k} {err:.3g} of {scale:.3g}{'' if good else ' MISMATCH'}")
+    ok &= max(g_card, g_cpu) <= DS_GRAD_F64 * g_scale
+    say(f"[12 card-cpu] StillWaterSA ppH {DS_CPU_PPH} ({int(sa_.count_active())} particles, "
+        f"the fluid displaced by up to 0.3 dp): card vs CPU max abs diff "
+        f"{', '.join(report)} (tolerances {json.dumps(DS_CARD_CPU)} as rtol, atol x max, "
+        f"atol floor); grad gamma against the CPU's f64 pass: card {g_card:.3g}, CPU "
+        f"{g_cpu:.3g} of {g_scale:.3g} (bar {DS_GRAD_F64} x max); the passes took "
+        f"{both_s:.3f} s; StillWaterSA took {part_s():.1f} s [{card}]")
+    if not ok:
+        fail("StillWaterSA: the density-sum passes on the card disagree with the CPU")
+    del sa_, ua, da, ga
+
+    # --- BiFluidPoiseuilleSA: periodic SA plates -------------------------------------------
+    prob, fw, grid, state0 = problem("BiFluidPoiseuilleSA", {})
+    n0 = int(state0.count_active())
+    sts, aux, cells = sorted_inputs(grid, state0.to(dev))
+    sts = ds.init_dynamic_gamma(fw, grid, sts, aux, cells=cells)
+    terms = ds.gamma_boundary_terms(fw, grid, sts, sts.pos, aux, cells=cells)
+    _, quad_gg = compute_gamma(fw, grid, sts, aux, cells=cells)
+    fl = (sts.info & 7) == 0
+    mine = torch.stack([terms[k] for k in ("ggx", "ggy", "ggz")], -1)[fl]
+    scale = float(quad_gg[fl].abs().max())
+    per_err = float((mine - quad_gg[fl]).abs().max())
+    inc = float(terms["ggdotr"].abs().max())
+    forces_kernel.launches = 0
+    sim = Simulator(prob.fw, grid)
+    t0 = time.perf_counter()
+    st = sim.run(state0, maxiter=fw.sp.buildneibsfreq)
+    torch.cuda.synchronize()
+    bi_s = time.perf_counter() - t0
+    launches = forces_kernel.launches
+    checks = sane("BiFluidPoiseuilleSA", st, n0, sim.dt)
+    say(f"[12 periodic] BiFluidPoiseuilleSA (periodic {int(grid.periodic)}, grid "
+        f"{'x'.join(map(str, grid.ncells))}, K {fw.sp.max_parts_per_cell}): {n0} particles; "
+        f"with no motion the density sum's n+1 grad gamma against compute_gamma's, max abs "
+        f"diff {per_err:.3g} of {scale:.4g} over {int(fl.sum())} fluid rows (bar "
+        f"{DS_PERIODIC_FRAC} x max), gamma increment {inc:.3g}; one chunk through "
+        f"Simulator.run {bi_s:.3f} s (host clock, seeding included), forces-kernel launches "
+        f"{launches}; {checks}; took {part_s():.1f} s [{card}]")
+    if not (per_err <= DS_PERIODIC_FRAC * scale and inc <= 1e-7 and launches == 0):
+        fail("BiFluidPoiseuilleSA: the periodic n+1 grad gamma misses the quadrature, or "
+             "the kernel launched")
+    del sts, aux, terms, st, sim
+
+    # --- LithostaticSA at dp 0.1: the cold EFFPRES solve in the warm-up chunk -------------
+    prob, fw, grid, state0 = problem("LithostaticSA", LITHOSTATIC_SA)
+    n0 = int(state0.count_active())
+    forces_kernel.launches = 0
+    sim = Simulator(prob.fw, grid)
+    t0 = time.perf_counter()
+    st = sim.run(state0, maxiter=fw.sp.buildneibsfreq)
+    torch.cuda.synchronize()
+    lith_s = time.perf_counter() - t0
+    launches = forces_kernel.launches
+    checks = sane("LithostaticSA", st, n0, sim.dt)
+    ep = st.extras["effpres"]
+    if float(ep.max()) > float(ep.min()):
+        slope, r2, n_fit, want = effpres_slope(fw, st.pos, ep, st.info)
+        fit = (f"effpres falls {slope:.6g} Pa/m with depth over {n_fit} interior sediment "
+               f"particles (R^2 {r2:.6f}), {slope / want:.4f} of (rho_sed - rho_w) g = "
+               f"{want:.6g}")
+    else:
+        fit = f"effpres is {float(ep.max()):.6g} everywhere"
+    say(f"[12 lithostatic] LithostaticSA {LITHOSTATIC_SA}: {n0} particles (grid "
+        f"{'x'.join(map(str, grid.ncells))}, K {fw.sp.max_parts_per_cell}); a warm-up chunk "
+        f"through Simulator.run (its cold EFFPRES solve) {lith_s:.3f} s (host clock), "
+        f"forces-kernel launches {launches}; {checks}; {fit} (a figure, not a gate); took "
+        f"{part_s():.1f} s [{card}]")
+    if launches != 0:
+        fail(f"LithostaticSA: the forces kernel launched {launches} times")
+    del st, sim
+    torch.cuda.empty_cache()
+
+    # --- StillWaterRepackSA through the CLI --------------------------------------------------
+    forces_kernel.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repack_sa_") as tmp:
+        argv = REPACK_SA_ARGV + ["--dir", tmp]
+        text = run_cli(argv)
+        if not os.path.exists(os.path.join(tmp, "repack.npz")):
+            fail("StillWaterRepackSA: --repack wrote no repack.npz")
+    ends = [ln for ln in text.splitlines() if ln.startswith("Simulation end")]
+    if not ends or " 10 iterations" not in ends[-1] or "device cuda" not in text:
+        fail(f"StillWaterRepackSA: the CLI did not run 10 iterations on the card: {ends}")
+    if forces_kernel.launches != 0:
+        fail(f"StillWaterRepackSA: the forces kernel launched {forces_kernel.launches} times")
+    say(f"[12 repack] python -m gpusph_tpu_torch {' '.join(REPACK_SA_ARGV)}: repacked, then "
+        f"10 iterations on the card, forces-kernel launches {forces_kernel.launches}; took "
+        f"{part_s():.1f} s; phase 12 took {time.perf_counter() - phase_t0:.1f} s (host clock) "
+        f"[{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -2124,6 +2509,10 @@ def main() -> int:
     # --- 11. SA walls on the gamma-quadrature path -----------------------------------
     sa_phase(dev, card)
     phase_done("11")
+
+    # --- 12. density summation and the dynamic gamma on SA walls ---------------------
+    density_sum_phase(dev, card)
+    phase_done("12")
     say("[time] " + ", ".join(f"phase {k} {t:.1f} s" for k, t in phase_s)
         + f"; total {time.perf_counter() - script_t0:.1f} s (host clock, nvcc included) "
         f"[{card}]")

@@ -39,9 +39,12 @@ StillWater, LockExchange, OpenChannel, BuoyancyTest, Spheric2,
 AccuracyTest, Objects, DynBoundsExample, ProblemExample, DamBreakGate,
 WaveTank, SolitaryWave, SlidingWedge, OffshorePile, Seiche, RTInstability,
 Bubble, BiFluidPoiseuille, LithostaticLJ, LithostaticDYN,
-DamBreakMobileBed, DEMExample, OilJet, StillWaterSA with ``--density_sum
-0``) and Generic (``problems/generic.py``); the other SA problems wait for
-their slices.  Not
+DamBreakMobileBed, DEMExample, OilJet, and on SA walls StillWaterSA (at its
+default, density summation; ``--density_sum 0`` takes gamma by
+quadrature), StillWaterRepackSA, BiFluidPoiseuilleSA and LithostaticSA)
+and Generic (``problems/generic.py``); the SA problems with k-epsilon or
+open boundaries wait for their slices.  With ``--repack`` the repacking
+runs before the dynamic gamma is seeded on the repacked particles.  Not
 ported: multi-device runs (``--ndev``), and ``--debug timing``, whose
 counterpart is ``chip_smoke.py`` [4 layers].
 """

@@ -9,14 +9,16 @@ steps in a Python loop.  A step starts with the density filters that are
 due at its global iteration (FILTER phase, `ops/filters.py`).  Each forces
 pass first refreshes Grenier's sigma and density (COMPUTE_DENSITY,
 `ops/grenier.py`), solves for the granular effective pressure (EFFPRES,
-`ops/jacobi.py`), computes the SA walls' gamma by quadrature and imposes
-their density (`ops/sa.py`), and computes the SPS stress and the effective
-viscosity where the model needs them (CALC_VISC, `ops/visc.py`).  The
-forces engine follows the configuration: the forces kernel
-(`ops/forces_kernel.py`; the CUDA kernel on the card, its plain version on
-the CPU) where ``kernel_supported`` holds, else the general pair path
-(`ops/forces.py`, on ``neighbor_apply``), which also takes a time-dependent
-gravity and SA walls.  The host loop handles termination and the overflow
+`ops/jacobi.py`), takes the SA walls' gamma (by quadrature, or the carried
+dynamic gamma) and imposes their density (`ops/sa.py`), and computes the
+SPS stress and the effective viscosity where the model needs them
+(CALC_VISC, `ops/visc.py`).  With density summation each Euler step is
+followed by the density-sum update and its diffusion pass
+(`ops/density_sum.py`).  The forces engine follows the configuration:
+the forces kernel (`ops/forces_kernel.py`; the CUDA kernel on the card,
+its plain version on the CPU) where ``kernel_supported`` holds, else the
+general pair path (`ops/forces.py`, on ``neighbor_apply``), which also
+takes a time-dependent gravity and SA walls.  The host loop handles termination and the overflow
 and dt checks.
 """
 from __future__ import annotations
@@ -37,6 +39,7 @@ from .bodies import (
 from .defs import RheologyType, SimFlags, SPHFormulation, TurbulenceModel
 from .framework import SimFramework
 from .ops.block_plan import build_block_plan, plan_dims
+from .ops.density_sum import apply_density_diffusion, density_sum_update, init_dynamic_gamma
 from .ops.filters import apply_filters
 from .ops.forces import compute_forces, gravity_vector
 from .ops.forces_kernel import compute_forces_kernel, kernel_supported
@@ -83,11 +86,10 @@ def resolve_device(device=None) -> torch.device:
 
 def _unported(fw: SimFramework) -> Optional[str]:
     """The missing slice a configuration needs, or None: SA boundaries run
-    on the gamma-quadrature path, without the options that build on them."""
+    with gamma by quadrature or with density summation and a dynamic gamma,
+    without the options that build on them."""
     if fw.visc.turbmodel == TurbulenceModel.KEPSILON:
         return "the k-epsilon model (ROADMAP item 9)"
-    if fw.flags & SimFlags.ENABLE_DENSITY_SUM:
-        return "density summation (with SA boundaries, ROADMAP item 8)"
     if fw.io is not None:
         return "open boundaries (ROADMAP item 9)"
     return None
@@ -118,6 +120,10 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
     needs_sps = fw.visc.turbmodel == TurbulenceModel.SPS
     needs_effvisc = fw.visc.needs_effective_visc
     sa = fw.sa_boundary
+    # density summation with gamma carried as state (SA walls only,
+    # framework.py); the JAX package's INTEGRATE_GAMMA branch, a dynamic
+    # gamma without density summation, has no configuration there
+    dyn_gamma = fw.dynamic_gamma
 
     def forces(state, plan, aux, cells, dt, t):
         """One forces pass at time t; returns it and the state, whose
@@ -137,9 +143,12 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
                                          cells=cells)
             state = state.replace(extras=dict(state.extras, effpres=ep), info=info)
         if sa:
-            # gamma by quadrature, then the wall density from the fluid
-            # (JAX integrator.py:134-157)
-            gamma, _ = compute_gamma(fw, grid, state, aux, cells=cells, with_grad=False)
+            # gamma (carried, or by quadrature), then the wall density from
+            # the fluid (JAX integrator.py:134-157)
+            if dyn_gamma:
+                gamma = state.extras["gamma"]
+            else:
+                gamma, _ = compute_gamma(fw, grid, state, aux, cells=cells, with_grad=False)
             state = impose_boundary_conditions(fw, grid, state, aux, gamma, cells=cells)
         # CALC_VISC before each forces pass (JAX integrator.py:95-106)
         if needs_sps:
@@ -152,6 +161,13 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
         return compute_forces(fw, grid, state, aux, dt=dt, sps_tau=sps_tau,
                               effvisc=effvisc, sigma=sigma, t=t, cells=cells,
                               gamma=gamma), state
+
+    def post_euler(state_n, state_new, dt_eff, aux, cells):
+        """DENSITY_SUM from the step's base state n to the Euler step's
+        state, then the diffusion pass on the summed state (JAX
+        integrator.py:183-204)."""
+        state_new = density_sum_update(fw, grid, state_n, state_new, aux, cells=cells)
+        return apply_density_diffusion(fw, grid, state_new, aux, dt_eff, cells=cells)
 
     def pc_step(state, dt, t, bodies, plan, aux, cells, it):
         # FILTER: the density filters due at global iteration it
@@ -166,6 +182,8 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
             # integrator.py:175-176)
             b_half = step_bodies(specs, b1, gravity_vector(fw, t), t, dt * 0.5)
             half = apply_body_motion(specs, half, b_half, dt * 0.5)
+        if dyn_gamma:
+            half = post_euler(state, half, dt * 0.5, aux, cells)
 
         # CORRECTOR: forces at n*, integrate n -> n+1 with dt
         f2, half = forces(half, plan, aux, cells, dt, t + dt * 0.5)
@@ -175,6 +193,8 @@ def make_sim_chunk(fw: SimFramework, grid: CellGrid, *,
             bodies = step_bodies(specs, b2, gravity_vector(fw, t + dt * 0.5), t + dt * 0.5,
                                  dt)
             new_state = apply_body_motion(specs, new_state, bodies, dt)
+        if dyn_gamma:
+            new_state = post_euler(state, new_state, dt, aux, cells)
 
         new_dt = compute_dt(fw, f2) if adaptive else dt
         return new_state, new_dt, t + dt, bodies, f2
@@ -269,6 +289,12 @@ class Simulator:
             self.bodies = self.bodies.to(self.device)
 
         self.finished = False
+        if self.fw.dynamic_gamma and self.iterations == 0:
+            # dynamic gamma seeded by quadrature on a fresh start (saInitGamma);
+            # a resume keeps the hotfile's (JAX integrator.py:340-351)
+            state, aux = build_cells(self.grid, state)
+            state = init_dynamic_gamma(self.fw, self.grid, state, aux)
+
         if on_write is not None:
             on_write(self, state)
         while True:

@@ -46,6 +46,24 @@ def merge_vec(out: Dict[str, torch.Tensor], name: str) -> torch.Tensor:
     return torch.stack([out[f"{name}_x"], out[f"{name}_y"], out[f"{name}_z"]], dim=-1)
 
 
+def min_image(grid: CellGrid, device) -> Callable:
+    """``wrap(rel, axis)``: a relative position along ``axis`` taken to its
+    nearest periodic image on the grid's periodic axes (unchanged on the
+    others)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    per = int(grid.periodic)
+    wraps = [(torch.tensor(L, **f32), torch.tensor(1.0 / L, **f32))
+             if per & (1 << a) else None for a, L in enumerate(grid.world_size)]
+
+    def wrap(rel, axis):
+        if wraps[axis] is None:
+            return rel
+        L, inv_L = wraps[axis]
+        return rel - L * torch.round(rel * inv_L)
+
+    return wrap
+
+
 class PairGeometry:
     """Per-pair geometry handed to the physics callback (all [C,K,NB])."""
 
@@ -111,16 +129,7 @@ def neighbor_apply(
     rad2 = torch.tensor(influenceradius * influenceradius, **f32)
     cell_start = aux.cell_start.long()
 
-    # periodic minimum-image offsets, applied per scalar axis
-    per = int(grid.periodic)
-    wraps = [(torch.tensor(L, **f32), torch.tensor(1.0 / L, **f32))
-             if per & (1 << a) else None for a, L in enumerate(grid.world_size)]
-
-    def wrap(rel, axis):
-        if wraps[axis] is None:
-            return rel
-        L, inv_L = wraps[axis]
-        return rel - L * torch.round(rel * inv_L)
+    wrap = min_image(grid, dev)  # periodic minimum image, per scalar axis
 
     results: Dict[str, torch.Tensor] = {}
     # at least one chunk, possibly empty, so that every output key exists
@@ -169,5 +178,5 @@ def neighbor_apply(
     return {k: v[:out_n] for k, v in results.items()}
 
 
-__all__ = ["neighbor_apply", "PairGeometry", "split_vec", "merge_vec",
+__all__ = ["neighbor_apply", "min_image", "PairGeometry", "split_vec", "merge_vec",
            "PAIR_SLOTS_PER_CHUNK", "CPU_PAIR_SLOTS_PER_CHUNK"]

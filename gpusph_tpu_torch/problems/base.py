@@ -24,7 +24,9 @@ and XYZ point files.  ``add_sa_box`` and ``add_sa_plate`` declare SA wall
 meshes (`geometry/sa_mesh.py`): their vertex and segment rows follow the
 geometries and test points, the grid and the cell probe take the SA search
 radius, and the build carries the ``belem`` and ``vr0..vr2`` extras of
-``ops/sa.py``.  Not ported yet: HDF5 geometry and open boundaries.
+``ops/sa.py`` (and, with density summation, the ``gamma`` and
+``gradgamma`` extras of ``ops/density_sum.py``).  Not ported yet: HDF5
+geometry and open boundaries.
 """
 from __future__ import annotations
 
@@ -639,6 +641,11 @@ class Problem:
             extras["belem"] = torch.as_tensor(belem)
             for i in range(3):
                 extras[f"vr{i}"] = torch.as_tensor(vrs[i])
+            if self.fw.dynamic_gamma:
+                # the carried gamma and grad gamma of density summation
+                # (BUFFER_GRADGAMMA), seeded by Simulator.run (saInitGamma)
+                extras["gamma"] = torch.ones((capacity,), dtype=torch.float32)
+                extras["gradgamma"] = torch.zeros((capacity, 3), dtype=torch.float32)
         state = empty_state(capacity, extras)  # a fresh state, filled in place
         f32 = torch.float32
         state.pos[:n_total] = torch.as_tensor(pos)

@@ -10,15 +10,17 @@ forces kernel; Seiche (SPS, a gravity callback), RTInstability and Bubble
 (Grenier, two fluids) and BiFluidPoiseuille (Hu & Adams, two fluids), which
 run on the general pair path; LithostaticLJ, LithostaticDYN and
 DamBreakMobileBed (granular rheology with the Jacobi effective pressure)
-and OilJet (Grenier, a piston) on the general path, StillWaterSA (SA walls
-on the gamma-quadrature path, ``--density_sum 0``) on the general path, and
-DEMExample (a DEM terrain) on the forces kernel; each with the JAX package's options and
-geometry.  A gravity callback returns tensors on its time's device.  A
+and OilJet (Grenier, a piston) on the general path; the SA-wall problems
+StillWaterSA (density summation and a dynamic gamma by default, gamma by
+quadrature with ``--density_sum 0``), StillWaterRepackSA,
+BiFluidPoiseuilleSA and LithostaticSA on the general path; and DEMExample
+(a DEM terrain) on the forces kernel; each with the JAX package's options
+and geometry.  A gravity callback returns tensors on its time's device.  A
 motion callback returns ``bodies.body_velocity`` of the chunk's time
 tensor.  ``problems/generic.py`` adds Generic (a scene read from an INI
-file).  ``NOT_PORTED`` names every other problem of the JAX catalog, the
-rest of the SA family, with the modules it waits for; ``get_problem``
-raises with that text.
+file).  ``NOT_PORTED`` names every other problem of the JAX catalog (the
+SA problems with k-epsilon or open boundaries) with the modules it waits
+for; ``get_problem`` raises with that text.
 """
 from __future__ import annotations
 
@@ -288,12 +290,11 @@ class StillWaterSA(Problem):
     `src/problems/StillWater.cu` with `boundary<SA_BOUNDARY>`, geometry from
     the Crixus HDF5 input, generated procedurally here by ``add_sa_box``).
 
-    The JAX package's default integrates with density summation and a
-    dynamic gamma (ENABLE_DENSITY_SUM), which waits for its slice (ROADMAP
-    item 8b): that configuration builds and ``make_sim_chunk`` raises for
-    it.  ``--density_sum 0`` runs the continuity equation with gamma by
-    quadrature before every forces pass (``ops/sa.py``) on the general pair
-    path.
+    The default integrates with density summation and a dynamic gamma
+    (ENABLE_DENSITY_SUM, the reference's preferred SA integration,
+    ``ops/density_sum.py``); ``--density_sum 0`` runs the continuity
+    equation with gamma by quadrature before every forces pass
+    (``ops/sa.py``).  Both run on the general pair path.
     """
 
     name = "StillWaterSA"
@@ -333,6 +334,20 @@ class StillWaterSA(Problem):
         self.add_box(GeometryType.FLUID, FillType.SOLID,
                      (dp, dp, dp), l - 2 * dp, l - 2 * dp, H - dp)
         self.set_water_level(H)
+
+
+class StillWaterRepackSA(StillWaterSA):
+    """StillWaterSA preceded by particle repacking (reference
+    `src/problems/StillWaterRepackSA.cu`: ENABLE_REPACKING,
+    repack_maxiter=10, repack_a=0.1, repack_alpha=0.1); the CLI's
+    ``--repack`` runs it before the dynamic gamma is seeded."""
+
+    name = "StillWaterRepackSA"
+
+    def __init__(self, options=None):
+        super().__init__(options)
+        self.fw = dataclasses.replace(self.fw, flags=self.fw.flags | SimFlags.ENABLE_REPACKING)
+        self._update_sp(repack_maxiter=10, repack_a=0.1, repack_alpha=0.1)
 
 
 class LockExchange(Problem):
@@ -1617,6 +1632,30 @@ class BiFluidPoiseuille(Problem):
         return state.replace(rho=torch.zeros_like(state.rho))
 
 
+class BiFluidPoiseuilleSA(BiFluidPoiseuille):
+    """Two-layer Poiseuille flow between SA wall plates (reference
+    `src/problems/BiFluidPoiseuilleSA.cu`: SA_BOUNDARY, ENABLE_DTADAPT |
+    ENABLE_MULTIFLUID | ENABLE_DENSITY_SUM; the reference's Crixus meshes
+    built here as plates at z = +-H/2, periodic in x and y)."""
+
+    name = "BiFluidPoiseuilleSA"
+
+    def __init__(self, options=None):
+        super().__init__(options)
+        self.fw = dataclasses.replace(self.fw, boundarytype=BoundaryType.SA_BOUNDARY,
+                                      flags=self.fw.flags | SimFlags.ENABLE_DENSITY_SUM)
+        dp = self.deltap
+        H = self.H
+        l = a_w = H / 4  # noqa: E741  (the JAX package's names)
+        # the SA plates take the place of the DYN wall fills
+        self.geometries = [g for g in self.geometries
+                           if g.gtype != GeometryType.FIXED_BOUNDARY]
+        self.make_universe_box((-l / 2, -a_w / 2, -H / 2 - 2 * dp), (l, a_w, H + 4 * dp))
+        for z0, nrm in ((-H / 2, (0, 0, 1.0)), (H / 2, (0, 0, -1.0))):
+            self.add_sa_plate((-l / 2, -a_w / 2, z0), (l, 0, 0), (0, a_w, 0), nrm,
+                              periodic_u=True, periodic_v=True)
+
+
 class _LithostaticBase(Problem):
     """Lithostatic equilibrium: a water layer over a saturated sediment bed in
     a 1 x 1 x 2.5 m box (reference `src/problems/Lithostatic.inc`): Hu &
@@ -1695,6 +1734,49 @@ class LithostaticDYN(_LithostaticBase):
 
     name = "LithostaticDYN"
     boundary = BoundaryType.DYN_BOUNDARY
+
+
+class LithostaticSA(_LithostaticBase):
+    """Lithostatic equilibrium in an SA container (reference
+    `src/problems/LithostaticSA.cu`: SA_BOUNDARY, ENABLE_MULTIFLUID |
+    ENABLE_DTADAPT | ENABLE_DENSITY_SUM; the reference's Crixus tank built
+    here by ``add_sa_box``), the water and sediment columns started at
+    their hydrostatic densities.  The JAX package's initialization calls
+    ``eos.density_for_pressure``, which it lacks; the port calls
+    ``eos.density_from_pressure`` (ROADMAP section 3)."""
+
+    name = "LithostaticSA"
+    boundary = BoundaryType.SA_BOUNDARY
+
+    def __init__(self, options=None):
+        super().__init__(options)
+        # LithostaticSA.cu:27-28: SA adds ENABLE_DENSITY_SUM (dynamic gamma)
+        self.fw = dataclasses.replace(self.fw,
+                                      flags=self.fw.flags | SimFlags.ENABLE_DENSITY_SUM)
+        dp = self.deltap
+        H, l = 2.5, 1.0  # noqa: E741  (the JAX package's names)
+        # an SA container in place of the base's point-filled tank
+        self.geometries = [g for g in self.geometries
+                           if g.gtype != GeometryType.FIXED_BOUNDARY]
+        self.sa_meshes = []
+        self.make_universe_box((-2 * dp, -2 * dp, -2 * dp), (l + 4 * dp, l + 4 * dp, H + 4 * dp))
+        self.add_sa_box((0.0, 0.0, 0.0), (l, l, H), faces="all")
+
+    def initialize_particles(self, grid, state):
+        # the two-layer hydrostatic density (Lithostatic.inc
+        # initializeParticles): water of depth hw over the sediment bed
+        # below z = hs, each layer under its own column
+        pp = self.fw.pp
+        g = self.get_gravity_magnitude()
+        z = state.pos[:, 2]
+        sed = has_flag(state.info, FG_SEDIMENT)
+        p_w = pp.fluids[0].rho0 * g * torch.clamp(self.hs + self.hw - z, min=0.0)
+        p_s = (pp.fluids[0].rho0 * g * self.hw
+               + pp.fluids[1].rho0 * g * torch.clamp(self.hs - z, min=0.0))
+        rho = eos.density_from_pressure(pp, torch.where(sed, p_s, p_w),
+                                        torch.where(sed, 1, 0))
+        rho = torch.where(is_fluid(state.info) & state.active, rho, 0.0)
+        return state.replace(rho=rho.to(torch.float32))
 
 
 class DamBreakMobileBed(Problem):
@@ -1988,9 +2070,6 @@ class OilJet(Problem):
 
 # the other problems of the JAX package's catalog, and what each waits for
 NOT_PORTED = {
-    "StillWaterRepackSA": "SA boundaries with density summation (ROADMAP item 8b)",
-    "LithostaticSA": "SA boundaries with density summation (ROADMAP item 8b)",
-    "BiFluidPoiseuilleSA": "SA boundaries with density summation (ROADMAP item 8b)",
     "ChannelIO": "SA boundaries with open boundaries (ROADMAP item 9b)",
     "CompleteSaExample": "SA boundaries with open boundaries (ROADMAP item 9b)",
     "Spheric2SA": "SA boundaries with the k-epsilon model (ROADMAP item 9a)",
@@ -1999,6 +2078,7 @@ NOT_PORTED = {
 
 
 __all__ = ["NOT_PORTED", "DamBreak3D", "Poiseuille", "StillWater", "StillWaterSA",
+           "StillWaterRepackSA", "BiFluidPoiseuilleSA", "LithostaticSA",
            "LockExchange", "OpenChannel",
            "BuoyancyTest", "Spheric2", "AccuracyTest", "Objects", "DynBoundsExample",
            "ProblemExample", "PoiseuillePapanastasiou", "DamBreakGate", "WaveTank",

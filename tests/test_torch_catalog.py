@@ -72,11 +72,18 @@ CASES = {
     "DamBreakMobileBed": dict(deltap=0.1),
     "DEMExample": dict(deltap=0.15),
     "OilJet": dict(deltap=0.1),
+    # SA walls with density summation and the dynamic gamma (general path);
+    # LithostaticSA's JAX build needs the stand-in of _jax_eos_stand_in
+    "StillWaterSA": dict(ppH=6),
+    "StillWaterRepackSA": dict(ppH=6),
+    "BiFluidPoiseuilleSA": {},
+    "LithostaticSA": dict(deltap=0.1),
 }
 # the cases that run on the general pair path
 GENERAL_PATH = {"Seiche", "RTInstability", "RTInstability-ha", "Bubble",
                 "BiFluidPoiseuille", "Poiseuille-er", "BuoyancyTest-gcallback",
-                "LithostaticLJ", "LithostaticDYN", "DamBreakMobileBed", "OilJet"}
+                "LithostaticLJ", "LithostaticDYN", "DamBreakMobileBed", "OilJet",
+                "StillWaterSA", "StillWaterRepackSA", "BiFluidPoiseuilleSA", "LithostaticSA"}
 RTOL = 1e-6  # same f32 formulas; libm may move an ulp
 # OilJet's pipe holds water 3.45 m deep at c0 = 10 m/s, so its hydrostatic
 # rho/rho0 - 1 reaches 0.19: there one ulp of the f32 pow of the density
@@ -137,8 +144,19 @@ def _build(case, opts):
     return jp, jgrid, jst, tp, tgrid, tst
 
 
+def _jax_eos_stand_in(monkeypatch):
+    """The JAX LithostaticSA calls ``eos.density_for_pressure``, which its
+    package lacks; its ``density_from_pressure`` stands in for the test."""
+    from gpusph_tpu.ops import eos as jeos
+
+    monkeypatch.setattr(jeos, "density_for_pressure", jeos.density_from_pressure,
+                        raising=False)
+
+
 @pytest.mark.parametrize("name", list(CASES))
-def test_problem_build_matches(name):
+def test_problem_build_matches(name, monkeypatch):
+    if name == "LithostaticSA":
+        _jax_eos_stand_in(monkeypatch)
     jp, jgrid, jst, tp, tgrid, tst = _build(name, CASES[name])
     for f in ("origin", "ncells", "cell_size", "periodic", "order"):
         assert getattr(tgrid, f) == getattr(jgrid, f), f
@@ -482,3 +500,30 @@ def test_bodies_step_with_the_callback_gravity(monkeypatch):
         want = [float(c) for c in _seiche_gravity(torch.tensor(ti), torch)]
         assert g == want
         assert g[0] != 0.0 and tuple(g) != tuple(fw.pp.gravity)
+
+
+def test_lithostatic_sa_runs_a_step():
+    """LithostaticSA (SA tank, two fluids, the Jacobi effective pressure and
+    density summation) through ``Simulator.run`` for one step on the CPU, at
+    dp 0.2 (1,016 particles) and two Jacobi iterations a solve; the JAX
+    package's dense SA passes at this cell capacity (K = 200) take minutes
+    a step, so the port runs alone, held to the JAX density-sum test's bars
+    (tests/test_density_sum.py): |rho| < 0.2, gamma in [0.1, 1]."""
+    from gpusph_tpu_torch.integrator import Simulator
+
+    p = get_problem("LithostaticSA")({"deltap": 0.2, "jacobi_maxiter": 2})
+    grid, st = p.build()
+    fw = dataclasses.replace(p.fw, simparams=dataclasses.replace(p.fw.sp, buildneibsfreq=1))
+    sim = Simulator(fw, grid, device="cpu")
+    out = sim.run(st, maxiter=1)
+    assert sim.iterations == 1 and sim.dt > 1e-10
+    act = out.active
+    assert int(act.sum()) == int(st.count_active()) == 1016
+    for t in (out.pos, out.vel, out.rho, out.extras["effpres"]):
+        assert bool(torch.isfinite(t).all())
+    assert float(out.rho[act].abs().max()) < 0.2
+    fluid = act & ((out.info & 7) == 0)
+    gamma = out.extras["gamma"][fluid]
+    assert float(gamma.min()) >= 0.1 and float(gamma.max()) <= 1.0
+    assert float(gamma.min()) < 0.9  # fluid at the tank's walls
+    assert float(out.extras["effpres"].max()) > 0

@@ -81,8 +81,9 @@ def test_unported_configurations_raise():
     """make_sim_chunk names the missing slice instead of skipping it; the
     filters, SPS, Grenier, a gravity callback, the granular rheology and a
     DEM terrain build (the general pair path takes all but the filters and
-    the DEM), and so do SA boundaries on the gamma-quadrature path; only
-    k-epsilon, density summation and open boundaries raise."""
+    the DEM), and so do SA boundaries, on the gamma-quadrature path and with
+    density summation; only k-epsilon and open boundaries raise, with
+    density summation too."""
     import dataclasses
 
     from gpusph_tpu_torch.defs import (BoundaryType, FilterType, RheologyType, SimFlags,
@@ -102,12 +103,15 @@ def test_unported_configurations_raise():
     make_sim_chunk(dataclasses.replace(fw, dem=((0.0,),)), grid)
     sa = dataclasses.replace(fw, boundarytype=BoundaryType.SA_BOUNDARY)
     make_sim_chunk(sa, grid)
+    dsum = dataclasses.replace(sa, flags=fw.flags | SimFlags.ENABLE_DENSITY_SUM)
+    make_sim_chunk(dsum, grid)
     for bad, match in (
             (dataclasses.replace(sa, visc=dataclasses.replace(
                 fw.visc, turbmodel=TurbulenceModel.KEPSILON)), "k-epsilon"),
-            (dataclasses.replace(sa, flags=fw.flags | SimFlags.ENABLE_DENSITY_SUM),
-             "density summation"),
-            (dataclasses.replace(fw, io=((0.0,),)), "open boundaries")):
+            (dataclasses.replace(dsum, visc=dataclasses.replace(
+                fw.visc, turbmodel=TurbulenceModel.KEPSILON)), "k-epsilon"),
+            (dataclasses.replace(fw, io=((0.0,),)), "open boundaries"),
+            (dataclasses.replace(dsum, io=((0.0,),)), "open boundaries")):
         with pytest.raises(NotImplementedError, match=match):
             make_sim_chunk(bad, grid)
 
@@ -119,7 +123,7 @@ def test_new_modules_fall_under_the_import_ban():
                 "ops/postprocess.py", "repacking.py", "ops/filters.py", "ops/visc.py",
                 "ops/forces.py", "ops/grenier.py", "ops/jacobi.py", "ops/dem.py",
                 "geometry/stl.py", "problems/generic.py", "ops/sa.py",
-                "geometry/sa_mesh.py"):
+                "geometry/sa_mesh.py", "ops/density_sum.py"):
         assert f"gpusph_tpu_torch/{mod}" in names, mod
 
 

@@ -340,14 +340,21 @@ def test_whole_slice_matches(builds):
 
 
 def test_stillwater_sa_default_raises_density_summation():
-    """StillWaterSA's default (density summation, dynamic gamma) builds and
-    names its slice at make_sim_chunk; --density_sum 0 does not raise."""
+    """StillWaterSA's default (density summation, dynamic gamma) no longer
+    raises: it builds with the carried gamma (ones) and grad gamma (zeros)
+    and make_sim_chunk takes it, as it takes --density_sum 0, which carries
+    no gamma."""
     p = get_problem("StillWaterSA")({"ppH": PPH})
-    grid, _ = p.build()
-    with pytest.raises(NotImplementedError, match="density summation"):
-        make_sim_chunk(p.fw.finalize(), grid)
+    grid, st = p.build()
+    fw = p.fw.finalize()
+    assert fw.dynamic_gamma
+    assert torch.equal(st.extras["gamma"], torch.ones_like(st.rho))
+    assert torch.equal(st.extras["gradgamma"], torch.zeros_like(st.pos))
+    make_sim_chunk(fw, grid)
     p0 = get_problem("StillWaterSA")({"ppH": PPH, "density_sum": 0})
-    make_sim_chunk(p0.fw.finalize(), p0.build()[0])
+    grid0, st0 = p0.build()
+    assert not p0.fw.finalize().dynamic_gamma and "gamma" not in st0.extras
+    make_sim_chunk(p0.fw.finalize(), grid0)
 
 
 def test_sa_with_keps_or_open_boundaries_raises(builds):
@@ -375,6 +382,32 @@ def test_sa_with_keps_or_open_boundaries_raises(builds):
         sa.impose_boundary_conditions(io, tgrid, ts, taux, gamma)
     with pytest.raises(NotImplementedError, match="item 9b"):
         tp.add_sa_plate((0, 0, 0), (0.1, 0, 0), (0, 0.1, 0), (0, 0, 1), io=("inlet", True))
+
+
+def test_density_sum_with_keps_or_open_boundaries_raises():
+    """With density summation, k-epsilon and open boundaries still raise at
+    make_sim_chunk, and the density-sum passes' open-boundary branches (the
+    inflow displacement, the imposed gamma) raise with ROADMAP item 9b."""
+    from gpusph_tpu_torch.defs import TurbulenceModel
+    from gpusph_tpu_torch.ops import density_sum as ds
+
+    p = get_problem("StillWaterSA")({"ppH": PPH})
+    grid, st = p.build()
+    fw = p.fw.finalize()
+    keps = dataclasses.replace(fw, visc=dataclasses.replace(
+        fw.visc, turbmodel=TurbulenceModel.KEPSILON))
+    with pytest.raises(NotImplementedError, match="k-epsilon"):
+        make_sim_chunk(keps, grid)
+    io = dataclasses.replace(fw, io=((0.0,),))
+    with pytest.raises(NotImplementedError, match="open boundaries"):
+        make_sim_chunk(io, grid)
+    ts, taux = build_cells(grid, st)
+    for fn in (lambda: ds.volumic_terms(io, grid, ts, ts.pos, taux),
+               lambda: ds.gamma_boundary_terms(io, grid, ts, ts.pos, taux),
+               lambda: ds.density_sum_update(io, grid, ts, ts, taux),
+               lambda: ds.integrate_gamma(io, grid, ts, ts, taux)):
+        with pytest.raises(NotImplementedError, match="item 9b"):
+            fn()
 
 
 # --- the output path ----------------------------------------------------------------
@@ -435,3 +468,102 @@ def test_output_and_resume(tmp_path):
         np.testing.assert_array_equal(got[k], fin[k], err_msg=k)
     for k in fin["extras"]:
         np.testing.assert_array_equal(got["extras"][k], fin["extras"][k], err_msg=k)
+
+
+def test_density_sum_hotfile_resume(tmp_path, monkeypatch):
+    """StillWaterSA with density summation on the CPU, a hotfile each chunk
+    (two chunks of one step): the hotfiles carry the integrated gamma and
+    grad gamma; a fresh run seeds them by quadrature once, a run resumed
+    from the first hotfile does not seed them again and ends bit-identical
+    to the straight run."""
+    import glob
+    import os
+
+    from gpusph_tpu_torch import integrator
+    from gpusph_tpu_torch.io.hotfile import load_hotfile
+    from gpusph_tpu_torch.io.writers import WriterDispatcher
+
+    seeds = []
+    seed = integrator.init_dynamic_gamma
+
+    def counted(*args, **kw):
+        seeds.append(1)
+        return seed(*args, **kw)
+
+    monkeypatch.setattr(integrator, "init_dynamic_gamma", counted)
+    p = get_problem("StillWaterSA")({"ppH": PPH})
+    grid, state0 = p.build()
+    fw = dataclasses.replace(p.fw, simparams=dataclasses.replace(p.fw.sp, buildneibsfreq=1))
+
+    def run(outdir, state, maxiter, resume=None):
+        sim = Simulator(fw, grid, device="cpu")
+        if resume is not None:
+            state, header, _ = load_hotfile(resume)
+            sim.t, sim.dt, sim.iterations = header["t"], header["dt"], header["iterations"]
+        writers = WriterDispatcher(outdir, sim.fw, hot_every=1e-9, grid=grid)
+        final = sim.run(state, maxiter=maxiter, write_every=1e-9, on_write=lambda s, st: (
+            writers.maybe_write(s.t, st, dt=s.dt, iterations=s.iterations,
+                                force=s.finished)))
+        writers.close()
+        return final, sorted(glob.glob(os.path.join(outdir, "hot_*.npz")))
+
+    final, hots = run(str(tmp_path / "straight"), state0, 2)
+    assert len(seeds) == 1
+    assert [load_hotfile(h)[1]["iterations"] for h in hots] == [1, 2]
+    st1, _, _ = load_hotfile(hots[0])
+    assert sorted(st1.extras) == ["belem", "gamma", "gradgamma", "vr0", "vr1", "vr2"]
+    # the carried gamma after a step, which the quadrature would replace
+    ts1, taux1 = build_cells(grid, st1)
+    quad, _ = sa.compute_gamma(fw.finalize(), grid, ts1, taux1)
+    fluid = (ts1.info & 7) == 0
+    assert float((ts1.extras["gamma"] - quad)[fluid].abs().max()) > 0
+    assert float(ts1.extras["gamma"][fluid].min()) < 0.9
+    fin = state_to_numpy(final)
+    np.testing.assert_array_equal(state_to_numpy(load_hotfile(hots[1])[0])["extras"]["gamma"],
+                                  fin["extras"]["gamma"])
+
+    again, _ = run(str(tmp_path / "resumed"), None, 2, resume=hots[0])
+    assert len(seeds) == 1  # the resume kept the hotfile's gamma
+    got = state_to_numpy(again)
+    for k in ("pos", "vel", "rho", "mass", "info", "id"):
+        np.testing.assert_array_equal(got[k], fin[k], err_msg=k)
+    for k in fin["extras"]:
+        np.testing.assert_array_equal(got["extras"][k], fin["extras"][k], err_msg=k)
+
+
+def test_repack_runs_before_the_gamma_seeding(tmp_path, monkeypatch):
+    """StillWaterRepackSA through the CLI on the CPU (``--repack``, one
+    repack chunk, then a chunk cut to one step): the dynamic gamma is seeded
+    once, on the repacked particles (the JAX CLI's order)."""
+    from gpusph_tpu_torch import cli, integrator
+    from gpusph_tpu_torch.io.hotfile import load_hotfile
+    from gpusph_tpu_torch.problems.base import PROBLEM_REGISTRY
+    from gpusph_tpu_torch.problems.catalog import StillWaterRepackSA
+
+    class _OneStep(StillWaterRepackSA):  # unregistered: its name starts with _
+        def __init__(self, options=None):
+            super().__init__(options)
+            self.fw = dataclasses.replace(self.fw, simparams=dataclasses.replace(
+                self.fw.sp, buildneibsfreq=1))
+
+    monkeypatch.setitem(PROBLEM_REGISTRY, "StillWaterRepackSA", _OneStep)
+
+    seeded = []
+    seed = integrator.init_dynamic_gamma
+
+    def recorded(fw, grid, state, aux, **kw):
+        seeded.append(state_to_numpy(state))
+        return seed(fw, grid, state, aux, **kw)
+
+    monkeypatch.setattr(integrator, "init_dynamic_gamma", recorded)
+    out = tmp_path / "run"
+    assert cli.main(["StillWaterRepackSA", "--ppH", str(PPH), "--repack", "--repack_maxiter",
+                     "10", "--maxiter", "1", "--dir", str(out), "--device", "cpu"]) == 0
+    repacked = state_to_numpy(load_hotfile(str(out / "repack.npz"))[0])
+    built = state_to_numpy(get_problem("StillWaterRepackSA")({"ppH": PPH}).build()[1])
+    assert len(seeded) == 1
+    got = seeded[0]
+    o, r, b = np.argsort(got["id"]), np.argsort(repacked["id"]), np.argsort(built["id"])
+    np.testing.assert_array_equal(got["pos"][o], repacked["pos"][r])
+    fluid = (built["info"][b] & 7) == 0
+    assert np.abs(repacked["pos"][r] - built["pos"][b])[fluid].max() > 0  # it moved
